@@ -1,0 +1,439 @@
+"""Quickest proof that the PyTorch/CUDA port runs on a GPU.
+
+    python3 chip_smoke.py [--seed N] [--out chiprun_out/chip_smoke.json]
+
+Needs one CUDA card and the CUDA toolkit (nvcc); exits non-zero without
+them, and without the repository around it.  Phases, each of which
+raises (and so exits non-zero) when it fails:
+
+1. the card's name and power limit (nvidia-smi); TF32 off;
+2. build both CUDA kernel sources for sm_90a;
+3. each kernel against its plain PyTorch version on the card, bit-equal
+   (``torch.equal``), at full-width VGG16 shapes at batch 8;
+4. the main path: full-width VGG16 (224x224x3, 1000 classes, seeded
+   random weights) bound with ``PALLAS_TILED`` (strict, prequantized) and
+   served through ``CnnServeEngine`` — 16 requests, no failures, no float
+   retries, 3 inline-conv / 10 prequant-conv / 3 prequant-matmul
+   launches per forward, logits bit-equal to a direct ``apply`` and to a
+   forward through a backend made of the plain versions.  The reduced
+   VGG16 of the model registry is served the same way: its FC layers
+   (K = 64) take the inline-weight matmul kernel;
+5. CUDA-event times of each kernel and its plain version at the phase-3
+   shapes and at every layer of one batch-8 forward of each path (each
+   layer also checked bit-equal to its plain version, with its bound),
+   served req/s, and one more served run under ``torch.profiler``
+   (device-busy share, host time by op; trace in
+   ``chiprun_out/serve_trace.json``);
+6. a JSON line of per-kernel numbers, then the result line
+   ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
+   first path that launches it (``path``): its launches in that path's
+   own zeroed run, and ms / plain_ms / bound_ms summed over that path's
+   layers that run it, per batch-8 forward.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
+# int8 tensor-core operations/s, for the least time a call could take.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+
+SOURCES = {"bfp_matmul": "src/repro_torch/kernels/csrc/bfp_matmul.cu",
+           "bfp_matmul_prequant": "src/repro_torch/kernels/csrc/bfp_matmul.cu",
+           "bfp_conv2d": "src/repro_torch/kernels/csrc/bfp_conv.cu",
+           "bfp_conv2d_prequant": "src/repro_torch/kernels/csrc/bfp_conv.cu"}
+REPLACES = {"bfp_matmul": "src/repro/kernels/bfp_matmul.py:362",
+            "bfp_matmul_prequant": "src/repro/kernels/bfp_matmul.py:388",
+            "bfp_conv2d": "src/repro/kernels/bfp_conv.py:278",
+            "bfp_conv2d_prequant": "src/repro/kernels/bfp_conv.py:304"}
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    check(bool(out), "nvidia-smi printed no card")
+    return out[0].strip()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call, CUDA events around ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound(x, w_parts, out, m, n, k):
+    """(bound_ms, bound_by): each input read once and the output written
+    once at the HBM rate, against 2*M*N*K int8 operations at the int8
+    tensor-core peak."""
+    nbytes = sum(t.numel() * t.element_size() for t in (x, *w_parts, out))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * n * k / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(prog="chip_smoke")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
+                                                  "chip_smoke.json"))
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False; this smoke needs a card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import engine as EG
+    from repro_torch import kernels as K
+    from repro_torch.core.policy import PALLAS_TILED
+    from repro_torch.core.prequant import (is_prequant, prequant_conv_leaf,
+                                           prequant_leaf)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bfp_conv as KC
+    from repro_torch.kernels import bfp_matmul as KM
+    from repro_torch.models.cnn import MODELS, layers, vgg
+    from repro_torch.serve.cnn import CnnServeEngine
+
+    # -- 1. the card -------------------------------------------------------
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card, flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}", flush=True)
+
+    # -- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    times = _build.build()
+    print(f"build: {json.dumps(times)} wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(args.seed)
+    pol = PALLAS_TILED.with_(straight_through=False)
+    bk = pol.block_k
+
+    def rnd(*shape, scale=1.0, relu=False):
+        t = torch.randn(shape, generator=gen) * scale
+        return (torch.relu(t) if relu else t).to(dev)
+
+    # -- 3. each kernel against its plain version at main-path shapes -------
+    # (label, path, kernel, kernel call, plain call, x, weight parts, M, N,
+    # K); path is the served path that runs the shape, or "off_path"
+    cases = []
+
+    def conv_case(label, path, x, w, stride, prequant):
+        kh, kw, c, oc = w.shape
+        if prequant:
+            d = prequant_conv_leaf(w, pol)
+            parts = (d["m"], d["s"])
+            call = lambda: KC.bfp_conv2d_prequant(  # noqa: E731
+                x, d["m"], d["s"], l_i=8, l_w=8, bk=bk, stride=stride)
+            plain = lambda: KC.bfp_conv2d_prequant_plain(  # noqa: E731
+                x, d["m"], d["s"], 8, 8, bk, stride)
+        else:
+            parts = (w,)
+            call = lambda: KC.bfp_conv2d(  # noqa: E731
+                x, w, l_i=8, l_w=8, bk=bk, stride=stride)
+            plain = lambda: KC.bfp_conv2d_plain(x, w, 8, 8, bk,  # noqa: E731
+                                                stride)
+        name = "bfp_conv2d_prequant" if prequant else "bfp_conv2d"
+        oh, ow = -(-x.shape[1] // stride), -(-x.shape[2] // stride)
+        cases.append((label, path, name, call, plain, x, parts,
+                      x.shape[0] * oh * ow, oc, kh * kw * c))
+
+    def mm_case(label, path, x, w, prequant):
+        if prequant:
+            d = prequant_leaf(w, pol)
+            parts = (d["m"], d["s"])
+            call = lambda: KM.bfp_matmul_prequant(  # noqa: E731
+                x, d["m"], d["s"], l_i=8, l_w=8, bk=bk)
+            plain = lambda: KM.bfp_matmul_prequant_plain(  # noqa: E731
+                x, d["m"], d["s"], 8, 8, bk)
+        else:
+            parts = (w,)
+            call = lambda: KM.bfp_matmul(x, w, l_i=8, l_w=8,  # noqa: E731
+                                         bk=bk)
+            plain = lambda: KM.bfp_matmul_plain(x, w, 8, 8, bk)  # noqa: E731
+        name = "bfp_matmul_prequant" if prequant else "bfp_matmul"
+        cases.append((label, path, name, call, plain, x, parts, x.shape[0],
+                      w.shape[1], w.shape[0]))
+
+    b, full_p, red_p = 8, "vgg16_full", "vgg16_reduced"
+    conv_case("conv1_1", full_p, rnd(b, 224, 224, 3),
+              rnd(3, 3, 3, 64, scale=0.27), 1, False)
+    conv_case("conv1_2", full_p, rnd(b, 224, 224, 64, relu=True),
+              rnd(3, 3, 64, 64, scale=0.06), 1, False)
+    conv_case("conv3_2", full_p, rnd(b, 56, 56, 256, relu=True),
+              rnd(3, 3, 256, 256, scale=0.03), 1, True)
+    conv_case("conv5_3", full_p, rnd(b, 14, 14, 512, relu=True),
+              rnd(3, 3, 512, 512, scale=0.02), 1, True)
+    conv_case("stem7x7s2", "off_path", rnd(b, 224, 224, 3),
+              rnd(7, 7, 3, 64, scale=0.12), 2, False)
+    mm_case("fc6", full_p, rnd(b, 25088, relu=True),
+            rnd(25088, 4096, scale=0.009), True)
+    mm_case("fc8", full_p, rnd(b, 4096, relu=True),
+            rnd(4096, 1000, scale=0.02), True)
+    mm_case("fc6_reduced", red_p, rnd(b, 64, relu=True),
+            rnd(64, 64, scale=0.18), False)
+    mm_case("fc7_inline", "off_path", rnd(b, 4096, relu=True),
+            rnd(4096, 4096, scale=0.02), False)
+
+    errs = {}
+    for label, path, name, call, plain, *_ in cases:
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        equal = torch.equal(got, want)
+        print(f"check {label:<11} {path:<13} {name:<20} {tuple(got.shape)} "
+              f"torch.equal={equal} max_abs_diff={err}", flush=True)
+        check(equal, f"{name} differs from its plain version at {label}")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    # -- 4. the main path: serve full-width VGG16 ---------------------------
+    def plain_matmul(x2d, w, p):
+        if is_prequant(w):
+            kb = w["m"].shape[0] // w["s"].shape[0]
+            return KM.bfp_matmul_prequant_plain(x2d, w["m"], w["s"], p.l_i,
+                                                p.l_w, kb)
+        return KM.bfp_matmul_plain(x2d, w, p.l_i, p.l_w, p.block_k)
+
+    def plain_conv(x, w, p, stride, padding):
+        if is_prequant(w):
+            kh, kw, c, _ = w["m"].shape
+            kb = kh * kw * c // w["s"].shape[0]
+            return KC.bfp_conv2d_prequant_plain(x, w["m"], w["s"], p.l_i,
+                                                p.l_w, kb, stride, padding)
+        return KC.bfp_conv2d_plain(x, w, p.l_i, p.l_w, p.block_k, stride,
+                                   padding)
+
+    EG.register_backend("plain", plain_matmul, conv=plain_conv)
+
+    def serve(label, params, hw, per_forward):
+        plan = EG.bind(params, pol, tree="cnn", strict=True)
+        eng = CnnServeEngine(None, vgg.apply, plan, slots=8)
+        images = torch.randn((16, hw, hw, 3), generator=gen)
+        reqs = [eng.submit(image=images[i]) for i in range(16)]
+        K.reset_launch_counts()
+        eng.run()
+        counts = K.launch_counts()
+        print(f"path {label}: stats {eng.stats} forwards {eng.ncalls} "
+              f"launches {counts}", flush=True)
+        check(all(r.done and r.error is None for r in reqs),
+              f"{label}: a request failed: "
+              f"{[repr(r.error) for r in reqs if r.error]}")
+        check(eng.stats["completed"] == 16 and eng.stats["failed"] == 0
+              and eng.stats["float_retries"] == 0,
+              f"{label}: serving stats {eng.stats}")
+        want = {k: v * eng.ncalls for k, v in per_forward.items()}
+        check(counts == want, f"{label}: launches {counts} != {want}")
+        served = torch.from_numpy(np.stack([r.logits for r in reqs]))
+        check(served.shape == (16, 1000 if hw == 224 else 10)
+              and bool(torch.isfinite(served).all()),
+              f"{label}: logits not finite of the expected shape")
+        fwd = plan.jit_forward(vgg.apply)
+        direct = torch.cat([fwd(images[i:i + 8].to(dev)).cpu()
+                            for i in (0, 8)])
+        check(torch.equal(served, direct),
+              f"{label}: served logits differ from a direct apply")
+        pplan = EG.bind(params, pol.with_(backend="plain"), tree="cnn",
+                        strict=True)
+        pfwd = pplan.jit_forward(vgg.apply)
+        plain = torch.cat([pfwd(images[i:i + 8].to(dev)).cpu()
+                           for i in (0, 8)])
+        err = (served - plain).abs().max().item()
+        check(torch.equal(served, plain),
+              f"{label}: kernel forward differs from the plain-backend "
+              f"forward (max |diff| {err})")
+        print(f"path {label}: 16 served logits bit-equal to direct apply and "
+              f"to the plain-version forward (max |diff| {err})", flush=True)
+        return plan, eng, images, counts
+
+    # each path's own launches: counts zeroed just before it, read after
+    launches = {}
+    plan, eng, images, launches[full_p] = serve(
+        full_p, vgg.init(gen, device=dev), 224,
+        {"bfp_conv2d": 3, "bfp_conv2d_prequant": 10,
+         "bfp_matmul_prequant": 3, "bfp_matmul": 0})
+    red_plan, _, red_images, launches[red_p] = serve(
+        red_p, MODELS["vgg16"].init(gen, reduced=True, device=dev), 32,
+        {"bfp_conv2d": 13, "bfp_conv2d_prequant": 0,
+         "bfp_matmul_prequant": 0, "bfp_matmul": 3})
+
+    # -- 5. timing ---------------------------------------------------------
+    detail = {"card": card, "kind": kind, "seed": args.seed, "shapes": [],
+              "layers": {full_p: {}, red_p: {}}, "launches": launches,
+              "build_s": times}
+    for label, path, name, call, plain, x, parts, m, n, k in cases:
+        out = call()
+        ms = cuda_ms(call, reps=20)
+        pms = cuda_ms(plain, reps=3)
+        bms, by = bound(x, parts, out, m, n, k)
+        row = {"shape": label, "path": path, "kernel": name, "ms": ms,
+               "plain_ms": pms, "bound_ms": bms, "bound_by": by, "M": m,
+               "N": n, "K": k}
+        detail["shapes"].append(row)
+        print(f"time {label:<11} {path:<13} {name:<20} kernel {ms:.4f} ms  "
+              f"plain {pms:.4f} ms  bound {bms:.4f} ms ({by})  [{card}]",
+              flush=True)
+
+    # every layer of one batch-8 forward of each path: kernel and plain
+    # times at the layer's own input, and its bound
+    def time_layer(plan, path, name, kind, x):
+        w = plan.params[name]
+        wt = w["w"]
+        if kind == "conv":
+            call = lambda: EG.conv2d(x, wt, plan, path=name)  # noqa: E731
+            plain = lambda: plain_conv(x, wt, pol, 1, "SAME")  # noqa: E731
+            kh, kw, c, n = (wt["m"] if is_prequant(wt) else wt).shape
+            m, k = x.shape[0] * x.shape[1] * x.shape[2], kh * kw * c
+        else:
+            call = lambda: EG.gemm(x, wt, plan, path=name)  # noqa: E731
+            plain = lambda: plain_matmul(x, wt, pol)  # noqa: E731
+            (k, n), m = (wt["m"] if is_prequant(wt) else wt).shape, x.shape[0]
+        out, want = call(), plain()
+        kname = (("bfp_conv2d" if kind == "conv" else "bfp_matmul")
+                 + ("_prequant" if is_prequant(wt) else ""))
+        check(torch.equal(out, want), f"{path} {name}: kernel != plain")
+        errs[kname] = max(errs.get(kname, 0.0),
+                          (out - want).abs().max().item())
+        parts = (wt["m"], wt["s"]) if is_prequant(wt) else (wt,)
+        bms, by = bound(x, parts, out, m, n, k)
+        detail["layers"][path][name] = {
+            "kernel": kname, "shape": [m, n, k],
+            "ms": cuda_ms(call, reps=5), "plain_ms": cuda_ms(plain, reps=2),
+            "bound_ms": bms, "bound_by": by}
+        return torch.relu(out + w["b"])
+
+    for path, lplan, limages in ((full_p, plan, images),
+                                 (red_p, red_plan, red_images)):
+        x = limages[:8].to(dev)
+        with torch.inference_mode():
+            for name, _ in vgg.VGG16_CONV_PLAN:
+                x = (layers.max_pool(x) if name == "pool"
+                     else time_layer(lplan, path, name, "conv", x))
+            x = x.reshape(8, -1)
+            for name in ("fc6", "fc7", "fc8"):
+                x = time_layer(lplan, path, name, "gemm", x)
+        for name, row in detail["layers"][path].items():
+            print(f"time layer {path:<13} {name:<8} {row['kernel']:<20} "
+                  f"M,N,K={row['shape']} kernel {row['ms']:.4f} ms  plain "
+                  f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})  [{card}]")
+    fwd = plan.jit_forward(vgg.apply)
+    xb = images[:8].to(dev)
+    detail["forward_ms"] = cuda_ms(lambda: fwd(xb), reps=5)
+    print(f"time forward batch 8: {detail['forward_ms']:.4f} ms  [{card}]")
+
+    reqs = [eng.submit(image=images[i]) for i in range(16)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    check(all(r.error is None for r in reqs), "timed serve run failed")
+    detail["serve_req_per_s"] = 16 / serve_s
+    print(f"time serve: 16 requests at bucket 8 in {serve_s:.4f} s = "
+          f"{16 / serve_s:.2f} req/s  [{card}]", flush=True)
+
+    # one more served run under the profiler: device-busy share of the
+    # serve wall time and where the host time goes (a separate run, so
+    # the req/s above carries no tracing cost)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for i in range(16):
+        eng.submit(image=images[i])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:8]
+    detail["profile"] = {
+        "wall_ms": wall_ms, "device_ms": device_ms,
+        "host_self_ms": {e.key: e.self_cpu_time_total / 1e3
+                         for e in top_host}}
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    prof.export_chrome_trace(os.path.join(os.path.dirname(args.out),
+                                          "serve_trace.json"))
+    busy = (f"{100 * device_ms / wall_ms:.1f}%" if device_ms > 0
+            else "not measured (no device events)")
+    print(f"profile serve: wall {wall_ms:.3f} ms, device kernels "
+          f"{device_ms:.3f} ms, device busy {busy}; top host self time "
+          f"(ms): {json.dumps({k: round(v, 3) for k, v in detail['profile']['host_self_ms'].items()})}"
+          f"  [{card}]", flush=True)
+
+    # -- 6. results ----------------------------------------------------------
+    kernels = []
+    for name in ("bfp_matmul", "bfp_matmul_prequant", "bfp_conv2d",
+                 "bfp_conv2d_prequant"):
+        path = next(p for p in (full_p, red_p) if launches[p][name] > 0)
+        rows = {ln: r for ln, r in detail["layers"][path].items()
+                if r["kernel"] == name}
+        bms = sum(r["bound_ms"] for r in rows.values())
+        bytes_ms = sum(r["bound_ms"] for r in rows.values()
+                       if r["bound_by"] == "bytes")
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "path": path,
+            "launches": launches[path][name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": errs[name],
+            "ms": sum(r["ms"] for r in rows.values()),
+            "plain_ms": sum(r["plain_ms"] for r in rows.values()),
+            "bound_ms": bms,
+            "bound_by": "bytes" if bytes_ms * 2 >= bms else "operations",
+            "library_ms": None, "layers": sorted(rows)})
+    print("kernels: " + "; ".join(
+        f"{k['name']} path={k['path']} launches={k['launches_by_path']} "
+        f"bit_exact={k['max_abs_err'] == 0.0} ms/forward={k['ms']:.4f}"
+        for k in kernels) + f"  [{card}]")
+    with open(args.out, "w") as f:
+        json.dump({**detail, "kernels": kernels}, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

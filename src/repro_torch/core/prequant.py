@@ -1,0 +1,182 @@
+"""Offline weight pre-quantization — the paper's deployment mode
+(counterpart of ``repro.core.prequant``).
+
+Wire format, consumed first-class by every engine backend:
+
+    {"m": int mantissa [.., K, N],  "s": f32 steps [.., K//bk, N]}
+
+``s`` holds the quantizer's power-of-two steps ``2^(e - (L_W - 2))``,
+so the prequant kernels reproduce BIT-EXACTLY what in-line weight
+quantization would have produced for Scheme.TILED with the same
+``block_k`` — but the quantization runs once, not per forward.
+Conv kernels keep their mantissa in HWIO with the sidecar in the GEMM
+view ``[kh*kw*C // bk, OC]`` (HWIO-major K, ``core.conv_utils``).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional
+
+import torch
+
+from repro_torch.core import bfp
+from repro_torch.core.policy import BFPPolicy
+
+__all__ = ["quantize_cnn_param_tree", "prequant_leaf", "prequant_conv_leaf",
+           "dequantize_prequant", "is_prequant", "prequant_act",
+           "dequantize_act", "act_block", "cnn_rule_path",
+           "detect_tree_kind", "map_with_path"]
+
+
+def is_prequant(w: Any) -> bool:
+    return isinstance(w, dict) and "m" in w and "s" in w
+
+
+def detect_tree_kind(params: Any) -> str:
+    """"lm" or "cnn" — the param-tree convention detector."""
+    if isinstance(params, dict) and (
+            {"embed", "layers", "dec", "periods"} & set(params)):
+        return "lm"
+    return "cnn"
+
+
+def _resolve(policy: Any, path: Optional[str]) -> Optional[BFPPolicy]:
+    # Lazy import: engine.policy_map is reached through repro_torch.engine,
+    # whose __init__ imports this module.
+    from repro_torch.engine.policy_map import resolve_policy
+    return resolve_policy(policy, path)
+
+
+def map_with_path(fn: Callable[[List[str], Any], Any], tree: Any,
+                  keys: Optional[List[str]] = None) -> Any:
+    """Rebuild a tree of dicts/lists/tuples with ``fn(keys, leaf)`` applied
+    to every leaf; ``keys`` are the string path segments (dict keys,
+    sequence indices), as ``repro`` derives them from pytree paths."""
+    keys = keys or []
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, keys + [str(k)])
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, keys + [str(i)])
+                          for i, v in enumerate(tree))
+    return fn(keys, tree)
+
+
+def prequant_leaf(w: torch.Tensor, policy: BFPPolicy) -> Any:
+    """[.., K, N] float -> {"m": int8 [.., K, N], "s": f32 [.., K/bk, N]};
+    a K that ``block_k`` does not divide stays float."""
+    if w.ndim < 2:
+        return w
+    lead = w.shape[:-2]
+    k, n = w.shape[-2:]
+    bk = policy.block_k or k
+    if k % bk:
+        return w
+    ms, ss = [], []
+    for mat in w.reshape(-1, k, n):
+        blk = bfp.bfp_quantize_matrix(mat, policy.l_w, "i", bfp.Scheme.TILED,
+                                      bk, policy.rounding)
+        ms.append(blk.mantissa)
+        ss.append(bfp.pow2(blk.exponent - (policy.l_w - 2)))
+    return {"m": torch.stack(ms).reshape(*lead, k, n),
+            "s": torch.stack(ss).reshape(*lead, k // bk, n)}
+
+
+def prequant_conv_leaf(w_hwio: torch.Tensor, policy: BFPPolicy) -> Any:
+    """HWIO conv kernel -> prequant dict with the mantissa kept in HWIO
+    and the steps in the GEMM view [K//bk, N]."""
+    if w_hwio.ndim != 4:
+        return w_hwio
+    kh, kw, c, n = w_hwio.shape
+    d = prequant_leaf(w_hwio.reshape(kh * kw * c, n), policy)
+    if not is_prequant(d):
+        return w_hwio          # block_k does not divide kh*kw*C
+    return {"m": d["m"].reshape(kh, kw, c, n), "s": d["s"]}
+
+
+def dequantize_prequant(w: Any, dtype=torch.float32) -> torch.Tensor:
+    """Prequant dict ([.., K, N] mantissa, [.., K//bk, N] steps) back to
+    a dense float weight; 4-D conv mantissas are lowered by the caller."""
+    m, s = w["m"], w["s"]
+    bk = m.shape[-2] // s.shape[-2]
+    s_full = torch.repeat_interleave(s, bk, dim=-2)
+    return m.to(dtype) * s_full.to(dtype)
+
+
+def prequant_act(x: torch.Tensor, policy: BFPPolicy) -> Any:
+    """Activations [.., K] -> {"m": int8 [.., K], "s": f32 [.., K//bk]}:
+    blocks run along the LAST axis, one per (row, K-chunk).  Requires
+    ``policy.l_i <= 8`` and ``block_k | K``."""
+    k = x.shape[-1]
+    bk = policy.block_k or k
+    if k % bk:
+        raise ValueError(f"activation prequant needs block_k | K, got "
+                         f"block_k={bk}, K={k}")
+    if policy.l_i > 8:
+        raise ValueError(f"activation prequant streams int8 mantissas; "
+                         f"L_I={policy.l_i} > 8")
+    lead = x.shape[:-1]
+    blk = bfp.bfp_quantize_matrix(x.reshape(-1, k), policy.l_i, "w",
+                                  bfp.Scheme.TILED, bk, policy.rounding)
+    return {"m": blk.mantissa.reshape(*lead, k),
+            "s": bfp.pow2(blk.exponent - (policy.l_i - 2)).reshape(
+                *lead, k // bk)}
+
+
+def dequantize_act(x: Any, dtype=torch.float32) -> torch.Tensor:
+    """Inverse layout of :func:`prequant_act` (blocks on the last axis)."""
+    m, s = x["m"], x["s"]
+    bk = m.shape[-1] // s.shape[-1]
+    return m.to(dtype) * torch.repeat_interleave(s, bk, dim=-1).to(dtype)
+
+
+def act_block(x: Any) -> int:
+    """Block size of an activation-prequant dict (K // sidecar columns)."""
+    return x["m"].shape[-1] // x["s"].shape[-1]
+
+
+def _conv_bn_nested(params, rule_keys) -> bool:
+    # The trailing "conv" segment is stripped ONLY for conv+bn blocks,
+    # whose runtime layer path omits it (checked via the sibling "bn").
+    node = params
+    for kk in rule_keys[:-1]:
+        node = node[int(kk)] if isinstance(node, (list, tuple)) \
+            else node[kk]
+    return isinstance(node.get(rule_keys[-1]), dict) and "bn" in node
+
+
+def cnn_rule_path(params, keys) -> Optional[str]:
+    """Runtime layer path for the CNN weight leaf at tree path ``keys``
+    ("conv1_1", "fc6", "blocks/3/c1"), or None when the leaf is not a
+    GEMM/conv weight (only leaves literally named ``w`` count)."""
+    if not keys or keys[-1] != "w":
+        return None
+    rule_keys = keys[:-1]
+    if rule_keys and rule_keys[-1] == "conv" and \
+            _conv_bn_nested(params, rule_keys):
+        rule_keys = rule_keys[:-1]
+    return "/".join(rule_keys)
+
+
+def quantize_cnn_param_tree(params: Any, policy: Any) -> Any:
+    """Walk a CNN param tree into the wire format: 4-D HWIO conv kernels
+    through :func:`prequant_conv_leaf`, 2-D dense weights through
+    :func:`prequant_leaf`, with the policy resolved on each leaf's
+    runtime layer path.  Biases and BN parameters stay as they are."""
+    if policy is None:
+        return params
+
+    def one(keys, leaf):
+        if not keys or keys[-1] != "w" or not isinstance(leaf, torch.Tensor):
+            return leaf
+        if not leaf.is_floating_point():
+            return leaf
+        pol = _resolve(policy, cnn_rule_path(params, keys))
+        if pol is None:
+            return leaf
+        if leaf.ndim == 4:
+            return prequant_conv_leaf(leaf, pol)
+        if leaf.ndim == 2:
+            return prequant_leaf(leaf, pol)
+        return leaf
+
+    return map_with_path(one, params)

@@ -1,0 +1,150 @@
+"""Backend registry for the BFP GEMM engine (counterpart of
+``repro.engine.backends``).
+
+  float   disabled-quant baseline: plain ``x @ w`` (prequant weights are
+          dequantized first) — the paper's floating-point reference.
+  cuda    the hand-written Hopper kernels (``repro_torch.kernels``):
+          Scheme.TILED only; with prequant weights it runs the
+          sidecar-consuming kernel variant.  Registered under "pallas"
+          too, so policies and PolicyMap JSON written by ``repro`` (whose
+          fused-kernel backend has that name) load unchanged.
+
+``select_backend`` honours ``policy.backend`` and never runs a policy a
+backend cannot execute faithfully.  ``repro`` downgrades such a policy
+to its "emulated" integer datapath; that backend is not ported yet, so
+here an unsupported policy raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.core.bfp import Rounding, Scheme
+from repro_torch.core.policy import BFPPolicy
+from repro_torch.core.prequant import dequantize_prequant, is_prequant
+
+__all__ = ["Backend", "register_backend", "get_backend",
+           "available_backends", "select_backend", "BackendUnsupportedError"]
+
+#: (x2d, w_or_prequant, policy) -> out [B, N]
+MatmulFn = Callable[[torch.Tensor, object, Optional[BFPPolicy]],
+                    torch.Tensor]
+
+#: (x_nhwc, w_hwio_or_prequant, policy, stride, padding) -> out NHWC
+ConvFn = Callable[..., torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    name: str
+    matmul: MatmulFn
+    supports: Callable[[BFPPolicy, object], bool]
+    #: optional fused convolution; ``None`` means engine.conv2d routes
+    #: this backend through the materialized-im2col + matmul fallback
+    conv: Optional[ConvFn] = None
+    #: (policy, w, stride, padding) -> can ``conv`` honour this faithfully?
+    conv_supports: Callable[..., bool] = lambda pol, w, stride, pad: False
+
+
+_REGISTRY: Dict[str, Backend] = {}
+
+
+def register_backend(name: str, matmul: MatmulFn,
+                     supports: Optional[Callable] = None,
+                     conv: Optional[ConvFn] = None,
+                     conv_supports: Optional[Callable] = None) -> None:
+    _REGISTRY[name] = Backend(
+        name, matmul, supports or (lambda pol, w: True), conv,
+        conv_supports or (lambda pol, w, stride, pad: conv is not None))
+
+
+def get_backend(name: str) -> Backend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown BFP backend {name!r}; available: "
+                       f"{available_backends()}") from None
+
+
+def available_backends():
+    return sorted(_REGISTRY)
+
+
+class BackendUnsupportedError(ValueError):
+    """The requested backend cannot honour the policy."""
+
+
+def select_backend(policy: BFPPolicy, w, *, strict: bool = False,
+                   path: Optional[str] = None) -> Backend:
+    """The requested backend if it supports (policy, w); otherwise raise
+    :class:`BackendUnsupportedError`.  ``repro`` downgrades such a policy
+    to its "emulated" backend unless ``strict``; that backend is not
+    ported yet, so here nothing runs in place of the requested
+    execution, strict or not (``strict`` only changes the message)."""
+    be = get_backend(policy.backend_name)
+    if be.supports(policy, w):
+        return be
+    msg = (f"backend {be.name!r} cannot honour policy "
+           f"(scheme={policy.scheme}, rounding={policy.rounding}, "
+           f"l_w={policy.l_w})" + (f" at site {path!r}" if path else ""))
+    if strict:
+        raise BackendUnsupportedError(
+            msg + "; refusing the emulated fallback (strict mode)")
+    raise BackendUnsupportedError(
+        msg + "; its fallback, the 'emulated' backend, is not ported to "
+              "repro_torch yet")
+
+
+# ---------------------------------------------------------------------------
+# Built-in backends
+# ---------------------------------------------------------------------------
+
+def _float_matmul(x2d, w, policy=None):
+    if is_prequant(w):
+        w = dequantize_prequant(w, x2d.dtype)
+    return x2d @ w
+
+
+def _cuda_matmul(x2d, w, policy):
+    from repro_torch.kernels import ops
+    if is_prequant(w):
+        return ops.bfp_matmul_prequant(x2d, w["m"], w["s"], policy)
+    return ops.bfp_matmul(x2d, w, policy)
+
+
+def _cuda_supports(policy: BFPPolicy, w) -> bool:
+    # The kernels implement exactly Scheme.TILED with block == K tile,
+    # round-to-nearest, both operands quantized, int8 prequant mantissas.
+    if policy.scheme is not Scheme.TILED or policy.block_k is None:
+        return False
+    if policy.rounding is not Rounding.ROUND:
+        return False
+    if not (policy.quantize_weights and policy.quantize_inputs):
+        return False
+    if is_prequant(w) and w["m"].dtype != torch.int8:
+        return False
+    return True
+
+
+def _cuda_conv(x, w, policy, stride, padding):
+    from repro_torch.kernels import ops
+    if is_prequant(w):
+        return ops.bfp_conv2d_prequant(x, w["m"], w["s"], policy, stride,
+                                       padding)
+    return ops.bfp_conv2d(x, w, policy, stride, padding)
+
+
+def _cuda_conv_supports(policy: BFPPolicy, w, stride, padding) -> bool:
+    if padding not in ("SAME", "VALID"):
+        return False
+    if not isinstance(stride, int) or stride < 1:
+        return False
+    return _cuda_supports(policy, w)
+
+
+register_backend("float", _float_matmul)
+for _name in ("cuda", "pallas"):
+    register_backend(_name, _cuda_matmul, _cuda_supports, conv=_cuda_conv,
+                     conv_supports=_cuda_conv_supports)

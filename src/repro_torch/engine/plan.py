@@ -1,0 +1,207 @@
+"""Bound execution plans — resolve/select/quantize ONCE, then just run
+(counterpart of ``repro.engine.plan``).
+
+``engine.bind(params, policy)`` walks the param tree once, resolves each
+GEMM/conv site's policy on its layer path, selects the backend up front
+(raising under ``strict`` when it cannot honour the policy), moves the
+weights to ``device`` and pre-quantizes every eligible weight into the
+``{"m", "s"}`` wire format:
+
+    plan = engine.bind(params, policy)
+    logits = vgg.apply(plan.params, x, plan)     # plan rides the policy arg
+
+Backward plans (``Site.dx``/``dw``) arrive with the training slice and
+stay None here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import types
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.core.policy import BFPPolicy
+from repro_torch.core.prequant import (cnn_rule_path, detect_tree_kind,
+                                       is_prequant, map_with_path,
+                                       quantize_cnn_param_tree)
+from repro_torch.engine import backends as BK
+from repro_torch.engine.core import _conv_exec, _gemm_exec
+from repro_torch.engine.policy_map import PolicyLike, PolicyMap, resolve_policy
+
+__all__ = ["Site", "Plan", "bind", "params_to"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Site:
+    """One bound GEMM/conv execution site."""
+
+    path: str
+    kind: str                       #: "gemm" | "conv"
+    policy: Optional[BFPPolicy]     #: resolved concrete policy (None=float)
+    backend: BK.Backend             #: concrete execution, selected at bind
+    prequantized: bool = False      #: weight leaf holds the wire format
+    dx: Any = None                  #: backward plans: training slice
+    dw: Any = None
+
+
+class Plan:
+    """Immutable per-site execution table returned by :func:`bind`.
+
+    ``plan.params`` is the (pre-quantized) tree the model should be
+    applied with; the plan itself rides the ``policy`` argument.
+    """
+
+    def __init__(self, sites: Dict[str, Site], params: Any,
+                 policy: PolicyLike, strict: bool = False,
+                 device: Optional[torch.device] = None):
+        self._sites = dict(sites)
+        self.sites = types.MappingProxyType(self._sites)
+        self.params = params
+        self.policy = policy
+        self.strict = strict
+        self.device = device
+        #: per-plan forwards keyed by apply function (see jit_forward)
+        self._fwd_cache: Dict[Any, Any] = {}
+
+    def __repr__(self) -> str:
+        n_bfp = sum(1 for s in self._sites.values() if s.policy is not None)
+        return (f"Plan({len(self._sites)} sites, {n_bfp} BFP, "
+                f"strict={self.strict})")
+
+    def site(self, path: str) -> Site:
+        return self._sites[path]
+
+    def resolve(self, path: Optional[str]) -> Optional[BFPPolicy]:
+        """Concrete policy for ``path`` (the ``resolve_policy`` protocol)."""
+        s = self._sites.get(path)
+        if s is not None:
+            return s.policy
+        return resolve_policy(self.policy, path)
+
+    def gemm(self, x: torch.Tensor, w: Any, *,
+             path: Optional[str] = None) -> torch.Tensor:
+        site = self._sites.get(path)
+        if site is not None and site.kind == "gemm":
+            return _gemm_exec(x, w, site.policy, backend=site.backend,
+                              path=path)[0]
+        # unbound path: per-call resolution (strict kept)
+        return _gemm_exec(x, w, resolve_policy(self.policy, path),
+                          strict=self.strict, path=path)[0]
+
+    def conv2d(self, x: torch.Tensor, w: Any, *, path: Optional[str] = None,
+               stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+        site = self._sites.get(path)
+        if site is not None and site.kind == "conv":
+            return _conv_exec(x, w, site.policy, stride, padding,
+                              backend=site.backend, path=path)[0]
+        return _conv_exec(x, w, resolve_policy(self.policy, path), stride,
+                          padding, strict=self.strict, path=path)[0]
+
+    def jit_forward(self, apply_fn):
+        """``apply_fn(plan.params, x, plan)`` as one callable, cached per
+        ``apply_fn`` on this plan, so every engine bound to the same plan
+        and model shares one object.  PyTorch runs eagerly, so nothing is
+        traced: the callable runs under ``torch.inference_mode()``."""
+        fn = self._fwd_cache.get(apply_fn)
+        if fn is None:
+            def fwd(x, *args, _apply=apply_fn):
+                with torch.inference_mode():
+                    return _apply(self.params, x, self, *args)
+            fn = fwd
+            self._fwd_cache[apply_fn] = fn
+        return fn
+
+
+def _validate_policy_backends(policy: PolicyLike) -> None:
+    """Every backend a policy (or PolicyMap rule) names must exist —
+    raise the available_backends KeyError at BIND time."""
+    pols = []
+    if isinstance(policy, PolicyMap):
+        pols = [p for _, p in policy.rules] + [policy.default]
+    elif isinstance(policy, BFPPolicy):
+        pols = [policy]
+    for p in pols:
+        if p is not None:
+            BK.get_backend(p.backend_name)
+
+
+def params_to(params: Any, device: torch.device) -> Any:
+    """The tree with every tensor leaf on ``device``."""
+    return map_with_path(
+        lambda _, leaf: leaf.to(device) if isinstance(leaf, torch.Tensor)
+        else leaf, params)
+
+
+def _discover_sites(params: Any):
+    """Yield (runtime_path, kind, weight_leaf) for every conv/GEMM weight
+    of a CNN tree — the same path derivation the prequant walker uses."""
+    found = []
+
+    def walk(node, keys):
+        if is_prequant(node):
+            found.append((keys, node))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, keys + [str(k)])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, keys + [str(i)])
+        else:
+            found.append((keys, node))
+
+    walk(params, [])
+    for keys, leaf in found:
+        arr = leaf["m"] if is_prequant(leaf) else leaf
+        if not isinstance(arr, torch.Tensor):
+            continue
+        rpath = cnn_rule_path(params, keys)
+        if rpath is None:
+            continue
+        if arr.ndim == 4:
+            yield rpath, "conv", leaf
+        elif arr.ndim == 2:
+            yield rpath, "gemm", leaf
+
+
+def bind(params: Any, policy: PolicyLike, *, tree: str = "auto",
+         strict: bool = False, prequantize: bool = True,
+         device: DeviceLike = "cuda") -> Plan:
+    """Bind ``policy`` to a CNN's parameters: one walk, one Plan.
+
+    Args:
+      params: model param tree (``models.cnn`` conventions; an already
+        pre-quantized tree is fine — quantization is idempotent).
+      policy: None / BFPPolicy / PolicyMap — resolved per site, once.
+      tree: "cnn" or "auto"; LM trees arrive with the LM slice.
+      strict: refuse backend downgrades (raise) — also applied to
+        unbound-path dispatch at call time.  No downgrade target is
+        ported yet, so an unsupported site raises either way.
+      prequantize: convert eligible weight leaves to the wire format.
+      device: where the plan's params live (default "cuda"; raises when
+        CUDA is absent unless the caller passes "cpu").
+
+    Raises KeyError for policies naming unknown backends, and
+    :class:`BackendUnsupportedError` when a requested backend cannot
+    honour its policy at a site.
+    """
+    dev = resolve_device(device)
+    _validate_policy_backends(policy)
+    kind = detect_tree_kind(params) if tree == "auto" else tree
+    if kind != "cnn":
+        raise ValueError(f"bind supports CNN trees (tree='cnn' or 'auto' on "
+                         f"a CNN tree) until the LM slice; got {kind!r}")
+    qparams = params_to(params, dev)
+    if prequantize:
+        qparams = quantize_cnn_param_tree(qparams, policy)
+    sites: Dict[str, Site] = {}
+    for path, skind, leaf in _discover_sites(qparams):
+        if path in sites:
+            continue
+        pol = resolve_policy(policy, path)
+        be = (BK.get_backend("float") if pol is None else
+              BK.select_backend(pol, leaf, strict=strict, path=path))
+        sites[path] = Site(path, skind, pol, be,
+                           prequantized=is_prequant(leaf))
+    return Plan(sites, qparams, policy, strict, device=dev)

@@ -1,0 +1,371 @@
+// BFP tiled GEMM core shared by the matmul and conv kernels (sm_90a).
+//
+// Computes, for every output element (row r, column n),
+//
+//   out[r, n] = sum over K-tiles t = 0 .. n_k-1, in order, of
+//               float(P_t[r, n]) * (sx_t[r] * sw_t[n])
+//
+// where P_t is the exact int32 dot of the tile's integer mantissas,
+// x is block-formatted per (row, K-tile) and w per (column, K-tile)
+// (Scheme.TILED with block_k = bk), each block taking
+//   e = floor(log2 amax) from the f32 exponent field (-126 for a block
+//       whose amax is not > 0, whose mantissas are then forced to 0),
+//   step = 2^(e - (L-2)),  m = clamp(round_half_even(v / step), +-lim).
+// That is the arithmetic of the Pallas kernels in repro/kernels
+// (bfp_matmul.py _make_matmul_kernel, bfp_conv.py _make_conv_kernel),
+// and it is bit-exact against them only if every float op rounds on its
+// own: the build passes -fmad=false and the rescale uses __fmul_rn /
+// __fadd_rn explicitly so no FFMA contraction can merge
+// `acc + part * (sx * sw)`.
+//
+// Design (one simple, correct kernel; speed is later work):
+//  * grid: one block per BM output rows x BN output columns.  The
+//    Pallas kernel's sequential K grid axis becomes the in-block loop
+//    over K-tiles, so the f32 accumulation order is the reference's.
+//  * per K-tile, pass 1 streams the tile once to take each row's (and,
+//    for inline weights, each column's) amax; the max of |v| is taken
+//    on the float bit patterns with atomicMax, which orders finite
+//    floats and inf correctly and keeps a NaN (whose block the reference
+//    zeroes).  Pass 2 streams the tile again in KC-wide chunks:
+//    quantize into shared memory, then the int dot (__dp4a on packed
+//    int8 for L <= 8, int32 MACs otherwise).  Shared memory stays fixed
+//    (< 48 KB) for every bk, so any bk the int32 overflow guard admits
+//    runs without an opt-in.
+//  * v / step: a step is a power of two, so v * 2^-s is the same real
+//    number as v / 2^s and rounds identically whenever 2^-s is itself
+//    a float (|s| <= 127); only then is the reciprocal used, and
+//    __fdiv_rn otherwise (a subnormal step's reciprocal overflows).
+//  * CONV gathers receptive-field rows straight from the NHWC input in
+//    global memory (HWIO-major k = (di*KW + dj)*C + c), zero in the
+//    padding and beyond K: no padded copy, no whole planes in shared
+//    memory (a 226x226x64 f32 plane is 13 MB).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace bfp {
+
+constexpr int BM = 64;         // output rows (pixels) per block
+constexpr int BN = 64;         // output columns (channels) per block
+constexpr int KC = 64;         // K elements staged per chunk
+constexpr int QC = KC / 4;     // 4-element quads per chunk row
+constexpr int NT = 256;        // threads per block (16 x 16)
+constexpr int ZERO_BLOCK_EXP = -126;
+
+struct Params {
+  const float* x;     // matmul: [M, K] row-major; conv: NHWC [B, H, W, C]
+  const float* w;     // inline weights, GEMM view [K, N] row-major
+  const int8_t* wm;   // prequant mantissas [K, N]
+  const float* ws;    // prequant steps [ceil(K / bk), N]
+  float* out;         // [M, N]  (conv: [B, OH, OW, OC])
+  int M, N, K, bk, l_i, l_w;
+  int H, W, C, KW, S, OH, OW, PT, PL;   // conv geometry
+};
+
+// Exact float32 2^e (repro.core.bfp.pow2): exponent field for normals,
+// one mantissa bit for subnormals, +0 below 2^-149, +inf above 2^127.
+__device__ __forceinline__ float pow2i(int e) {
+  if (e < -149) return 0.0f;
+  if (e > 127) return __int_as_float(0x7F800000);
+  if (e >= -126) return __int_as_float((e + 127) << 23);
+  return __int_as_float(1 << (e + 149));
+}
+
+// Block parameters from the amax bit pattern.  mode 0: zero block
+// (mantissas 0); 1: multiply by the exact reciprocal; 2: IEEE divide.
+__device__ __forceinline__ void block_params(unsigned amax_bits, int bits,
+                                             float* step, float* inv,
+                                             int* mode) {
+  const float amax = __uint_as_float(amax_bits);
+  if (!(amax > 0.0f)) {
+    *step = pow2i(ZERO_BLOCK_EXP - (bits - 2));
+    *inv = 0.0f;
+    *mode = 0;
+    return;
+  }
+  const int e = (int)((amax_bits >> 23) & 0xFFu) - 127;
+  const int s = e - (bits - 2);
+  *step = pow2i(s);
+  if (s >= -127 && s <= 127) {
+    *inv = pow2i(-s);
+    *mode = 1;
+  } else {
+    *inv = 0.0f;
+    *mode = 2;
+  }
+}
+
+__device__ __forceinline__ int quant(float v, float step, float inv, int mode,
+                                     int lim) {
+  if (mode == 0) return 0;
+  const float q = (mode == 1) ? __fmul_rn(v, inv) : __fdiv_rn(v, step);
+  const int m = __float2int_rn(q);   // half-to-even; saturates, NaN -> 0
+  return min(max(m, -lim), lim);
+}
+
+__device__ __forceinline__ int pack4(const int v[4]) {
+  return (int)(((unsigned)v[0] & 0xFFu) | (((unsigned)v[1] & 0xFFu) << 8) |
+               (((unsigned)v[2] & 0xFFu) << 16) | ((unsigned)v[3] << 24));
+}
+
+__device__ __forceinline__ unsigned abs_bits(float v) {
+  return __float_as_uint(fabsf(v));
+}
+
+// x[row, k] for a row < M and k < K.  CONV reads the receptive field.
+template <bool CONV>
+__device__ __forceinline__ float load_x(const Params& p, int row, int k,
+                                        long long base, int ih0, int iw0) {
+  if (!CONV) return p.x[(size_t)row * p.K + k];
+  const int kwc = p.KW * p.C;
+  const int di = k / kwc;
+  const int r = k - di * kwc;
+  const int dj = r / p.C;
+  const int c = r - dj * p.C;
+  const int ih = ih0 + di;
+  const int iw = iw0 + dj;
+  if ((unsigned)ih >= (unsigned)p.H || (unsigned)iw >= (unsigned)p.W)
+    return 0.0f;
+  return p.x[base + ((long long)ih * p.W + iw) * p.C + c];
+}
+
+template <bool CONV, bool W_PQ, bool WIDE>
+__global__ void __launch_bounds__(NT) bfp_tile_kernel(const Params p) {
+  // Row stride (in ints) of the staged mantissas: odd, so the 16 column
+  // threads of a half warp hit 16 different banks.
+  constexpr int XS = WIDE ? KC + 1 : QC + 1;
+  __shared__ int s_xq[BM * XS];
+  __shared__ int s_wq[BN * XS];
+  __shared__ unsigned s_xamax[BM];
+  __shared__ unsigned s_wamax[BN];
+  __shared__ float s_xstep[BM], s_xinv[BM];
+  __shared__ float s_wstep[BN], s_winv[BN];
+  __shared__ int s_xmode[BM], s_wmode[BN];
+  __shared__ long long s_base[BM];
+  __shared__ int s_ih0[BM], s_iw0[BM];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;             // x quads: kq; MAC: column group
+  const int ty = tid / 16;             // x quads/MAC: row group
+  const int wc = tid % BN;             // w quads: column
+  const int wk = tid / BN;             // w quads: first kq
+  const int row0 = blockIdx.x * BM;
+  const int col0 = blockIdx.y * BN;
+  const int lim_x = (1 << (p.l_i - 1)) - 1;
+  const int lim_w = (1 << (p.l_w - 1)) - 1;
+
+  if (CONV && tid < BM) {
+    const int row = row0 + tid;
+    long long base = 0;
+    int ih0 = 0, iw0 = 0;
+    if (row < p.M) {
+      const int ohw = p.OH * p.OW;
+      const int b = row / ohw;
+      const int r = row - b * ohw;
+      const int oh = r / p.OW;
+      const int ow = r - oh * p.OW;
+      base = (long long)b * p.H * p.W * p.C;
+      ih0 = oh * p.S - p.PT;
+      iw0 = ow * p.S - p.PL;
+    }
+    s_base[tid] = base;
+    s_ih0[tid] = ih0;
+    s_iw0[tid] = iw0;
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  const int n_k = (p.K + p.bk - 1) / p.bk;
+  for (int t = 0; t < n_k; ++t) {
+    const int k0 = t * p.bk;
+    const int kend = min(k0 + p.bk, p.K);
+
+    // ---- pass 1: block amax ------------------------------------------
+    if (tid < BM) s_xamax[tid] = 0u;
+    if (!W_PQ && tid < BN) s_wamax[tid] = 0u;
+    __syncthreads();
+    {
+      unsigned xm[4] = {0u, 0u, 0u, 0u};
+      for (int kc0 = k0; kc0 < kend; kc0 += KC) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int lr = ty + 16 * i;
+          const int row = row0 + lr;
+          if (row >= p.M) continue;
+          long long base = 0;
+          int ih0 = 0, iw0 = 0;
+          if (CONV) { base = s_base[lr]; ih0 = s_ih0[lr]; iw0 = s_iw0[lr]; }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int k = kc0 + 4 * tx + u;
+            if (k < kend)
+              xm[i] = max(xm[i],
+                          abs_bits(load_x<CONV>(p, row, k, base, ih0, iw0)));
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (xm[i]) atomicMax(&s_xamax[ty + 16 * i], xm[i]);
+      if (!W_PQ) {
+        const int col = col0 + wc;
+        unsigned wmax = 0u;
+        if (col < p.N)
+          for (int k = k0 + wk; k < kend; k += NT / BN)
+            wmax = max(wmax, abs_bits(p.w[(size_t)k * p.N + col]));
+        if (wmax) atomicMax(&s_wamax[wc], wmax);
+      }
+    }
+    __syncthreads();
+    if (tid < BM) {
+      block_params(s_xamax[tid], p.l_i, &s_xstep[tid], &s_xinv[tid],
+                   &s_xmode[tid]);
+    } else if (tid < BM + BN) {
+      const int lc = tid - BM;
+      const int col = col0 + lc;
+      if (W_PQ) {
+        s_wstep[lc] = col < p.N ? p.ws[(size_t)t * p.N + col] : 0.0f;
+      } else {
+        block_params(s_wamax[lc], p.l_w, &s_wstep[lc], &s_winv[lc],
+                     &s_wmode[lc]);
+      }
+    }
+    __syncthreads();
+
+    // ---- pass 2: quantize KC-wide chunks, exact int dot ---------------
+    int part[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = 0;
+
+    for (int kc0 = k0; kc0 < kend; kc0 += KC) {
+      const int nk = min(KC, kend - kc0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int lr = ty + 16 * i;
+        const int row = row0 + lr;
+        long long base = 0;
+        int ih0 = 0, iw0 = 0;
+        if (CONV) { base = s_base[lr]; ih0 = s_ih0[lr]; iw0 = s_iw0[lr]; }
+        const float st = s_xstep[lr], iv = s_xinv[lr];
+        const int md = s_xmode[lr];
+        int v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int k = kc0 + 4 * tx + u;
+          v[u] = 0;
+          if (row < p.M && k < kend)
+            v[u] = quant(load_x<CONV>(p, row, k, base, ih0, iw0), st, iv, md,
+                         lim_x);
+        }
+        if (WIDE) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) s_xq[lr * XS + 4 * tx + u] = v[u];
+        } else {
+          s_xq[lr * XS + tx] = pack4(v);
+        }
+      }
+      {
+        const int col = col0 + wc;
+        const float st = W_PQ ? 0.0f : s_wstep[wc];
+        const float iv = W_PQ ? 0.0f : s_winv[wc];
+        const int md = W_PQ ? 0 : s_wmode[wc];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kq = wk + (NT / BN) * i;
+          int v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int k = kc0 + 4 * kq + u;
+            v[u] = 0;
+            if (col < p.N && k < kend) {
+              const size_t off = (size_t)k * p.N + col;
+              v[u] = W_PQ ? (int)p.wm[off] : quant(p.w[off], st, iv, md, lim_w);
+            }
+          }
+          if (WIDE) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) s_wq[wc * XS + 4 * kq + u] = v[u];
+          } else {
+            s_wq[wc * XS + kq] = pack4(v);
+          }
+        }
+      }
+      __syncthreads();
+      if (WIDE) {
+        for (int kk = 0; kk < nk; ++kk) {
+          int a[4], b[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = s_xq[(ty + 16 * i) * XS + kk];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) b[j] = s_wq[(tx + 16 * j) * XS + kk];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) part[i][j] += a[i] * b[j];
+        }
+      } else {
+        const int nq = (nk + 3) / 4;
+        for (int kq = 0; kq < nq; ++kq) {
+          int a[4], b[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = s_xq[(ty + 16 * i) * XS + kq];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) b[j] = s_wq[(tx + 16 * j) * XS + kq];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) part[i][j] = __dp4a(a[i], b[j], part[i][j]);
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- rescale and accumulate, in tile order -------------------------
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float sx = s_xstep[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float sxsw = __fmul_rn(sx, s_wstep[tx + 16 * j]);
+        acc[i][j] = __fadd_rn(acc[i][j],
+                              __fmul_rn(__int2float_rn(part[i][j]), sxsw));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = col0 + tx + 16 * j;
+      if (col < p.N) p.out[(size_t)row * p.N + col] = acc[i][j];
+    }
+  }
+}
+
+// Picks the instantiation: W_PQ from the weight mode, WIDE (int32
+// mantissas, plain MACs) when an in-kernel quantized operand has L > 8.
+template <bool CONV>
+inline int launch(const Params& p, bool w_prequant, cudaStream_t stream) {
+  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
+  const bool wide = p.l_i > 8 || (!w_prequant && p.l_w > 8);
+  if (w_prequant) {
+    if (wide) bfp_tile_kernel<CONV, true, true><<<grid, NT, 0, stream>>>(p);
+    else bfp_tile_kernel<CONV, true, false><<<grid, NT, 0, stream>>>(p);
+  } else {
+    if (wide) bfp_tile_kernel<CONV, false, true><<<grid, NT, 0, stream>>>(p);
+    else bfp_tile_kernel<CONV, false, false><<<grid, NT, 0, stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bfp

@@ -1,0 +1,68 @@
+"""The port stands alone: no module of ``repro_torch`` (nor
+``chip_smoke.py``) imports JAX or the JAX package, and entry points
+called without ``device=`` never drift onto the CPU when CUDA is absent.
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import engine as EG
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.policy import PALLAS_TILED
+from repro_torch.models.cnn import MODELS, layers, vgg
+from repro_torch.serve.cnn import CnnServeEngine
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+_FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20 and all(f.exists() for f in files)
+    bad = {(f.relative_to(REPO).as_posix(), root) for f in files
+           for root in _imported_roots(f) if root in _FORBIDDEN}
+    assert not bad, f"port modules import the reference: {sorted(bad)}"
+
+
+def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MODELS["vgg16"].init(gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vgg.init(gen, input_hw=32, width_mult=0.125, fc_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        layers.conv2d_init(gen, 3, 8, 3, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy({"w": np.ones((2, 2), np.float32)})
+    params = {"fc": layers.dense_init(gen, 4, 2, device="cpu")}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EG.bind(params, PALLAS_TILED)
+    apply = lambda p, x, pol: layers.dense(p["fc"], x.reshape(len(x), -1),  # noqa: E731
+                                           pol, path="fc")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CnnServeEngine(params, apply, None)
+    # asked for explicitly, the CPU serves
+    eng = CnnServeEngine(params, apply, None, device="cpu")
+    req = eng.submit(image=torch.ones(1, 2, 2))
+    eng.run()
+    assert req.logits.shape == (2,)
+    assert eng.plan.params["fc"]["w"].device.type == "cpu"
