@@ -24,11 +24,26 @@ raises (and so exits non-zero) when it fails:
    served req/s, and one more served run under ``torch.profiler``
    (device-busy share, host time by op; trace in
    ``chiprun_out/serve_trace.json``);
-6. a JSON line of per-kernel numbers, then the result line
+6. the activation wire-format chain on full-width VGG16 at batch 8,
+   from the real activations at each stage's entry: conv2_1 -> conv2_2,
+   conv3_1 -> conv3_3, conv4_1 -> conv4_3, conv5_1 -> conv5_3 and
+   fc6 -> fc8, every producer passing ``out_policy=plan.out_policy_for(
+   next)``, no bias or ReLU between.  Plan A binds the phase-4 weights
+   prequantized (the xw-prequant kernels), plan B with float weights (the
+   x-prequant kernels).  Each plan's launches are counted in its own
+   zeroed run and checked, with the fused-epilogue count; every output
+   (wire dicts included) is ``torch.equal`` to the same chain through a
+   backend of plain versions, each ``out_policy`` output to
+   ``prequant_act`` of the layer's f32 output, and each chain's end to
+   the float-activation chain.  Then each layer is timed (CUDA events)
+   as it runs in the chain, through the plain versions, and with f32 in
+   and out, beside its bound;
+7. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
-   layers that run it, per batch-8 forward.
+   layers that run it, per batch-8 forward (per chain run for the
+   wire-format kernels).
 """
 from __future__ import annotations
 
@@ -49,14 +64,40 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 
-SOURCES = {"bfp_matmul": "src/repro_torch/kernels/csrc/bfp_matmul.cu",
-           "bfp_matmul_prequant": "src/repro_torch/kernels/csrc/bfp_matmul.cu",
-           "bfp_conv2d": "src/repro_torch/kernels/csrc/bfp_conv.cu",
-           "bfp_conv2d_prequant": "src/repro_torch/kernels/csrc/bfp_conv.cu"}
+_MM_CU = "src/repro_torch/kernels/csrc/bfp_matmul.cu"
+_CONV_CU = "src/repro_torch/kernels/csrc/bfp_conv.cu"
+SOURCES = {"bfp_matmul": _MM_CU, "bfp_matmul_prequant": _MM_CU,
+           "bfp_matmul_xprequant": _MM_CU, "bfp_matmul_xwprequant": _MM_CU,
+           "bfp_conv2d": _CONV_CU, "bfp_conv2d_prequant": _CONV_CU,
+           "bfp_conv2d_xprequant": _CONV_CU, "bfp_conv2d_xwprequant": _CONV_CU}
 REPLACES = {"bfp_matmul": "src/repro/kernels/bfp_matmul.py:362",
             "bfp_matmul_prequant": "src/repro/kernels/bfp_matmul.py:388",
+            "bfp_matmul_xprequant": "src/repro/kernels/bfp_matmul.py:419",
+            "bfp_matmul_xwprequant": "src/repro/kernels/bfp_matmul.py:448",
             "bfp_conv2d": "src/repro/kernels/bfp_conv.py:278",
-            "bfp_conv2d_prequant": "src/repro/kernels/bfp_conv.py:304"}
+            "bfp_conv2d_prequant": "src/repro/kernels/bfp_conv.py:304",
+            "bfp_conv2d_xprequant": "src/repro/kernels/bfp_conv.py:332",
+            "bfp_conv2d_xwprequant": "src/repro/kernels/bfp_conv.py:363"}
+#: counters of the wire-format kernels and of the fused epilogue, which
+#: no served path launches (phase 4 expects them at 0)
+WIRE_COUNTERS = ("bfp_matmul_xprequant", "bfp_matmul_xwprequant",
+                 "bfp_conv2d_xprequant", "bfp_conv2d_xwprequant",
+                 "bfp_matmul_epilogue", "bfp_conv2d_epilogue")
+#: the chains of phase 6: each stage starts from the real activation at
+#: its entry; conv1_x cannot chain (C = 3 and 64 are not block multiples)
+CHAIN_STAGES = (("conv2_1", "conv2_2"), ("conv3_1", "conv3_2", "conv3_3"),
+                ("conv4_1", "conv4_2", "conv4_3"),
+                ("conv5_1", "conv5_2", "conv5_3"), ("fc6", "fc7", "fc8"))
+#: predicted launches per chain run at batch 8 (plan A: weights
+#: prequantized; plan B: float weights); 9 run the fused epilogue each
+CHAIN_LAUNCHES = {
+    "chain_A": {"bfp_conv2d": 1, "bfp_conv2d_prequant": 3,
+                "bfp_conv2d_xwprequant": 7, "bfp_matmul_prequant": 1,
+                "bfp_matmul_xwprequant": 2, "bfp_conv2d_epilogue": 7,
+                "bfp_matmul_epilogue": 2},
+    "chain_B": {"bfp_conv2d": 4, "bfp_conv2d_xprequant": 7,
+                "bfp_matmul": 1, "bfp_matmul_xprequant": 2,
+                "bfp_conv2d_epilogue": 7, "bfp_matmul_epilogue": 2}}
 
 
 def fail(msg: str) -> None:
@@ -92,11 +133,18 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _parts(v):
+    """A tensor, or the tensors of a wire-format {"m", "s"} dict."""
+    return tuple(v.values()) if isinstance(v, dict) else (v,)
+
+
 def bound(x, w_parts, out, m, n, k):
     """(bound_ms, bound_by): each input read once and the output written
-    once at the HBM rate, against 2*M*N*K int8 operations at the int8
-    tensor-core peak."""
-    nbytes = sum(t.numel() * t.element_size() for t in (x, *w_parts, out))
+    once at the HBM rate (a wire-format x or output counts its int8
+    mantissas and f32 steps), against 2*M*N*K int8 operations at the
+    int8 tensor-core peak."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*_parts(x), *w_parts, *_parts(out)))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * m * n * k / INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -115,8 +163,9 @@ def main() -> int:
     from repro_torch import engine as EG
     from repro_torch import kernels as K
     from repro_torch.core.policy import PALLAS_TILED
-    from repro_torch.core.prequant import (is_prequant, prequant_conv_leaf,
-                                           prequant_leaf)
+    from repro_torch.core.prequant import (act_block, dequantize_act,
+                                           is_prequant, prequant_act,
+                                           prequant_conv_leaf, prequant_leaf)
     from repro_torch.kernels import _build
     from repro_torch.kernels import bfp_conv as KC
     from repro_torch.kernels import bfp_matmul as KM
@@ -225,23 +274,55 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0.0), err)
 
     # -- 4. the main path: serve full-width VGG16 ---------------------------
-    def plain_matmul(x2d, w, p):
+    # A backend of the plain versions, taking the activation wire format
+    # in and out as the kernels' backend does (phase 6).
+    def epilogue(out_policy):
+        return ((None, None) if out_policy is None
+                else (out_policy.l_i, out_policy.block_k))
+
+    def wire(out):
+        return {"m": out[0], "s": out[1]} if isinstance(out, tuple) else out
+
+    def plain_matmul(x2d, w, p, out_policy=None):
+        epi = epilogue(out_policy)
+        if is_prequant(x2d):
+            xb = act_block(x2d)
+            if is_prequant(w):
+                return wire(KM.bfp_matmul_xwprequant_plain(
+                    x2d["m"], x2d["s"], w["m"], w["s"], p.l_i, p.l_w, xb,
+                    *epi))
+            return wire(KM.bfp_matmul_xprequant_plain(
+                x2d["m"], x2d["s"], w, p.l_i, p.l_w, xb, *epi))
         if is_prequant(w):
             kb = w["m"].shape[0] // w["s"].shape[0]
-            return KM.bfp_matmul_prequant_plain(x2d, w["m"], w["s"], p.l_i,
-                                                p.l_w, kb)
-        return KM.bfp_matmul_plain(x2d, w, p.l_i, p.l_w, p.block_k)
+            return wire(KM.bfp_matmul_prequant_plain(
+                x2d, w["m"], w["s"], p.l_i, p.l_w, kb, *epi))
+        return wire(KM.bfp_matmul_plain(x2d, w, p.l_i, p.l_w, p.block_k,
+                                        *epi))
 
-    def plain_conv(x, w, p, stride, padding):
+    def plain_conv(x, w, p, stride, padding, out_policy=None):
+        epi = epilogue(out_policy)
         if is_prequant(w):
             kh, kw, c, _ = w["m"].shape
             kb = kh * kw * c // w["s"].shape[0]
-            return KC.bfp_conv2d_prequant_plain(x, w["m"], w["s"], p.l_i,
-                                                p.l_w, kb, stride, padding)
-        return KC.bfp_conv2d_plain(x, w, p.l_i, p.l_w, p.block_k, stride,
-                                   padding)
+        else:
+            kb = p.block_k
+        if is_prequant(x):
+            if is_prequant(w):
+                return wire(KC.bfp_conv2d_xwprequant_plain(
+                    x["m"], x["s"], w["m"], w["s"], p.l_i, p.l_w, kb,
+                    stride, padding, *epi))
+            return wire(KC.bfp_conv2d_xprequant_plain(
+                x["m"], x["s"], w, p.l_i, p.l_w, act_block(x), stride,
+                padding, *epi))
+        if is_prequant(w):
+            return wire(KC.bfp_conv2d_prequant_plain(
+                x, w["m"], w["s"], p.l_i, p.l_w, kb, stride, padding, *epi))
+        return wire(KC.bfp_conv2d_plain(x, w, p.l_i, p.l_w, kb, stride,
+                                        padding, *epi))
 
-    EG.register_backend("plain", plain_matmul, conv=plain_conv)
+    EG.register_backend("plain", plain_matmul, conv=plain_conv,
+                        act_prequant=True, out_quant=True)
 
     def serve(label, params, hw, per_forward):
         plan = EG.bind(params, pol, tree="cnn", strict=True)
@@ -285,14 +366,17 @@ def main() -> int:
 
     # each path's own launches: counts zeroed just before it, read after
     launches = {}
+    full_params = vgg.init(gen, device=dev)
     plan, eng, images, launches[full_p] = serve(
-        full_p, vgg.init(gen, device=dev), 224,
+        full_p, full_params, 224,
         {"bfp_conv2d": 3, "bfp_conv2d_prequant": 10,
-         "bfp_matmul_prequant": 3, "bfp_matmul": 0})
+         "bfp_matmul_prequant": 3, "bfp_matmul": 0,
+         **dict.fromkeys(WIRE_COUNTERS, 0)})
     red_plan, _, red_images, launches[red_p] = serve(
         red_p, MODELS["vgg16"].init(gen, reduced=True, device=dev), 32,
         {"bfp_conv2d": 13, "bfp_conv2d_prequant": 0,
-         "bfp_matmul_prequant": 0, "bfp_matmul": 3})
+         "bfp_matmul_prequant": 0, "bfp_matmul": 3,
+         **dict.fromkeys(WIRE_COUNTERS, 0)})
 
     # -- 5. timing ---------------------------------------------------------
     detail = {"card": card, "kind": kind, "seed": args.seed, "shapes": [],
@@ -401,11 +485,142 @@ def main() -> int:
           f"(ms): {json.dumps({k: round(v, 3) for k, v in detail['profile']['host_self_ms'].items()})}"
           f"  [{card}]", flush=True)
 
-    # -- 6. results ----------------------------------------------------------
+    # -- 6. the activation wire-format chain ------------------------------
+    wire_plans = {
+        "chain_A": (plan, EG.bind(full_params, pol.with_(backend="plain"),
+                                  tree="cnn", strict=True)),
+        "chain_B": tuple(EG.bind(full_params, p, tree="cnn", strict=True,
+                                 prequantize=False)
+                         for p in (pol, pol.with_(backend="plain")))}
+    heads = {stage[0] for stage in CHAIN_STAGES}
+    entries = {}
+    with torch.inference_mode():     # the f32 forward of phase 4's plan
+        x = images[:8].to(dev)
+        for name, _ in vgg.VGG16_CONV_PLAN:
+            if name == "pool":
+                x = layers.max_pool(x)
+                continue
+            if name in heads:
+                entries[name] = x
+            x = torch.relu(EG.conv2d(x, plan.params[name]["w"], plan,
+                                     path=name) + plan.params[name]["b"])
+        entries["fc6"] = x.reshape(8, -1)
+
+    def run_chain(p, stage, wire=True):
+        """(layer, input, output, out_policy) of each layer of ``stage``
+        through plan ``p``; ``wire=False`` hands over f32."""
+        steps, x = [], entries[stage[0]]
+        for i, name in enumerate(stage):
+            nxt = stage[i + 1] if wire and i + 1 < len(stage) else None
+            opol = p.out_policy_for(nxt) if nxt else None
+            fn = p.gemm if name.startswith("fc") else p.conv2d
+            y = fn(x, p.params[name]["w"], path=name, out_policy=opol)
+            steps.append((name, x, y, opol))
+            x = y
+        return steps
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return (isinstance(b, dict) and torch.equal(a["m"], b["m"])
+                    and torch.equal(a["s"], b["s"]))
+        return torch.equal(a, b)
+
+    def max_diff(a, b):
+        if isinstance(a, dict):
+            return max((a["m"].float() - b["m"].float()).abs().max().item(),
+                       (a["s"] - b["s"]).abs().max().item())
+        return (a - b).abs().max().item()
+
+    def kernel_of(p, name, x):
+        w = p.params[name]["w"]
+        base = "bfp_matmul" if name.startswith("fc") else "bfp_conv2d"
+        if is_prequant(x):
+            return base + ("_xwprequant" if is_prequant(w) else "_xprequant")
+        return base + ("_prequant" if is_prequant(w) else "")
+
+    with torch.inference_mode():
+        for label, (kplan, pplan) in wire_plans.items():
+            K.reset_launch_counts()
+            runs = [run_chain(kplan, stage) for stage in CHAIN_STAGES]
+            torch.cuda.synchronize()
+            launches[label] = K.launch_counts()
+            fused = (launches[label]["bfp_conv2d_epilogue"]
+                     + launches[label]["bfp_matmul_epilogue"])
+            print(f"path {label}: launches per chain run "
+                  f"{ {k: v for k, v in launches[label].items() if v} }, "
+                  f"fused epilogue {fused}", flush=True)
+            want = {**dict.fromkeys(launches[label], 0),
+                    **CHAIN_LAUNCHES[label]}
+            check(launches[label] == want,
+                  f"{label}: launches {launches[label]} != {want}")
+            for stage, steps in zip(CHAIN_STAGES, runs):
+                # (a) the same chain through the plain versions
+                for (name, x, y, opol), (_, _, py, _) in zip(
+                        steps, run_chain(pplan, stage)):
+                    kname = kernel_of(kplan, name, x)
+                    errs[kname] = max(errs.get(kname, 0.0), max_diff(y, py))
+                    check(same(y, py), f"{label} {name}: {kname} differs "
+                                       f"from the plain-version chain")
+                    # (b) the fused epilogue == the two-step route
+                    if opol is not None:
+                        fn = kplan.gemm if name.startswith("fc") \
+                            else kplan.conv2d
+                        two = prequant_act(fn(x, kplan.params[name]["w"],
+                                              path=name), opol)
+                        check(same(y, two), f"{label} {name}: epilogue != "
+                                            f"prequant_act of the f32 output")
+                # (c) the wire chain's end == the float-activation chain's
+                flt = run_chain(kplan, stage, wire=False)[-1][2]
+                check(same(steps[-1][2], flt),
+                      f"{label} {stage}: wire chain != float chain")
+            print(f"path {label}: every layer torch.equal to the "
+                  f"plain-version chain, every out_policy output to "
+                  f"prequant_act of its f32 output, each stage's end to the "
+                  f"float-activation chain", flush=True)
+
+            # per layer as it runs in the chain: kernel, plain, f32 handoff
+            rows = detail["layers"][label] = {}
+            for steps in runs:
+                for name, x, y, opol in steps:
+                    w = kplan.params[name]["w"]
+                    fc = name.startswith("fc")
+                    fn = kplan.gemm if fc else kplan.conv2d
+                    xf = dequantize_act(x) if is_prequant(x) else x
+                    yf = fn(xf, w, path=name)
+                    wt = w["m"] if is_prequant(w) else w
+                    parts = (w["m"], w["s"]) if is_prequant(w) else (w,)
+                    if fc:
+                        (k, n), m = wt.shape, xf.shape[0]
+                    else:
+                        kh, kw, c, n = wt.shape
+                        m, k = xf.shape[0] * xf.shape[1] * xf.shape[2], \
+                            kh * kw * c
+                    bms, by = bound(x, parts, y, m, n, k)
+                    row = rows[name] = {
+                        "kernel": kernel_of(kplan, name, x),
+                        "epilogue": opol is not None, "shape": [m, n, k],
+                        "ms": cuda_ms(lambda: fn(x, w, path=name,
+                                                 out_policy=opol), reps=5),
+                        "plain_ms": cuda_ms(lambda: (plain_matmul(
+                            x, w, pol, opol) if fc else plain_conv(
+                            x, w, pol, 1, "SAME", opol)), reps=2),
+                        "f32_ms": cuda_ms(lambda: fn(xf, w, path=name),
+                                          reps=5),
+                        "bound_ms": bms, "bound_by": by,
+                        "f32_bound_ms": bound(xf, parts, yf, m, n, k)[0]}
+                    print(f"time chain {label} {name:<8} {row['kernel']:<22} "
+                          f"epilogue={row['epilogue']!s:<5} "
+                          f"M,N,K={row['shape']} "
+                          f"kernel {row['ms']:.4f} ms  plain "
+                          f"{row['plain_ms']:.4f} ms  f32 handoff "
+                          f"{row['f32_ms']:.4f} ms  bound {bms:.4f} ms ({by}),"
+                          f" f32 bound {row['f32_bound_ms']:.4f} ms  [{card}]",
+                          flush=True)
+
+    # -- 7. results ----------------------------------------------------------
     kernels = []
-    for name in ("bfp_matmul", "bfp_matmul_prequant", "bfp_conv2d",
-                 "bfp_conv2d_prequant"):
-        path = next(p for p in (full_p, red_p) if launches[p][name] > 0)
+    for name in SOURCES:
+        path = next(p for p in launches if launches[p][name] > 0)
         rows = {ln: r for ln, r in detail["layers"][path].items()
                 if r["kernel"] == name}
         bms = sum(r["bound_ms"] for r in rows.values())
@@ -421,10 +636,11 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in rows.values()),
             "bound_ms": bms,
             "bound_by": "bytes" if bytes_ms * 2 >= bms else "operations",
-            "library_ms": None, "layers": sorted(rows)})
+            "library_ms": None, "bit_exact": errs[name] == 0.0,
+            "layers": sorted(rows)})
     print("kernels: " + "; ".join(
         f"{k['name']} path={k['path']} launches={k['launches_by_path']} "
-        f"bit_exact={k['max_abs_err'] == 0.0} ms/forward={k['ms']:.4f}"
+        f"bit_exact={k['bit_exact']} ms/run={k['ms']:.4f}"
         for k in kernels) + f"  [{card}]")
     with open(args.out, "w") as f:
         json.dump({**detail, "kernels": kernels}, f, indent=1)

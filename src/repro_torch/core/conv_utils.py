@@ -35,13 +35,14 @@ def conv_geometry(h: int, w: int, kh: int, kw: int, stride: int,
     raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
 
 
-def im2col(x: torch.Tensor, kh: int, kw: int, stride: int,
-           padding: str) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
-    """NHWC -> patch matrix [B*OH*OW, kh*kw*C] in HWIO-major K-order."""
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str,
+           value: float = 0.0) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """NHWC -> patch matrix [B*OH*OW, kh*kw*C] in HWIO-major K-order;
+    ``value`` fills the padding."""
     b, h, w, c = x.shape
     oh, ow, (pt, pb), (pl, pr) = conv_geometry(h, w, kh, kw, stride,
                                                padding)
-    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb), value=value)
     slabs = [xp[:, di:di + (oh - 1) * stride + 1:stride,
                 dj:dj + (ow - 1) * stride + 1:stride, :]
              for di in range(kh) for dj in range(kw)]

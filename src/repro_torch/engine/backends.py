@@ -5,7 +5,9 @@
           dequantized first) — the paper's floating-point reference.
   cuda    the hand-written Hopper kernels (``repro_torch.kernels``):
           Scheme.TILED only; with prequant weights it runs the
-          sidecar-consuming kernel variant.  Registered under "pallas"
+          sidecar-consuming kernel variant, with wire-format activations
+          the x-prequant variants, and it fuses the requantize epilogue
+          (``act_prequant``/``out_quant``).  Registered under "pallas"
           too, so policies and PolicyMap JSON written by ``repro`` (whose
           fused-kernel backend has that name) load unchanged.
 
@@ -46,6 +48,15 @@ class Backend:
     conv: Optional[ConvFn] = None
     #: (policy, w, stride, padding) -> can ``conv`` honour this faithfully?
     conv_supports: Callable[..., bool] = lambda pol, w, stride, pad: False
+    #: can ``matmul``/``conv`` consume the activation wire format
+    #: ``{"m", "s"}`` natively (cuda: the x-prequant kernels)?  False means
+    #: the engine dequantizes it first — bit-identical by quantization
+    #: idempotence, one more round-trip through device memory.
+    act_prequant: bool = False
+    #: do ``matmul``/``conv`` take ``out_policy=`` and emit the wire format
+    #: from the accumulator (the fused requantize epilogue)?  False means
+    #: the engine requantizes the float output in a second step.
+    out_quant: bool = False
 
 
 _REGISTRY: Dict[str, Backend] = {}
@@ -54,10 +65,13 @@ _REGISTRY: Dict[str, Backend] = {}
 def register_backend(name: str, matmul: MatmulFn,
                      supports: Optional[Callable] = None,
                      conv: Optional[ConvFn] = None,
-                     conv_supports: Optional[Callable] = None) -> None:
+                     conv_supports: Optional[Callable] = None,
+                     act_prequant: bool = False,
+                     out_quant: bool = False) -> None:
     _REGISTRY[name] = Backend(
         name, matmul, supports or (lambda pol, w: True), conv,
-        conv_supports or (lambda pol, w, stride, pad: conv is not None))
+        conv_supports or (lambda pol, w, stride, pad: conv is not None),
+        act_prequant, out_quant)
 
 
 def get_backend(name: str) -> Backend:
@@ -107,11 +121,15 @@ def _float_matmul(x2d, w, policy=None):
     return x2d @ w
 
 
-def _cuda_matmul(x2d, w, policy):
+def _cuda_matmul(x2d, w, policy, out_policy=None):
+    # x2d may be the activation wire format (a previous layer's epilogue
+    # output): ops dispatches the x-prequant kernels; out_policy asks for
+    # the fused requantize epilogue.
     from repro_torch.kernels import ops
     if is_prequant(w):
-        return ops.bfp_matmul_prequant(x2d, w["m"], w["s"], policy)
-    return ops.bfp_matmul(x2d, w, policy)
+        return ops.bfp_matmul_prequant(x2d, w["m"], w["s"], policy,
+                                       out_policy=out_policy)
+    return ops.bfp_matmul(x2d, w, policy, out_policy=out_policy)
 
 
 def _cuda_supports(policy: BFPPolicy, w) -> bool:
@@ -128,12 +146,13 @@ def _cuda_supports(policy: BFPPolicy, w) -> bool:
     return True
 
 
-def _cuda_conv(x, w, policy, stride, padding):
+def _cuda_conv(x, w, policy, stride, padding, out_policy=None):
     from repro_torch.kernels import ops
     if is_prequant(w):
         return ops.bfp_conv2d_prequant(x, w["m"], w["s"], policy, stride,
-                                       padding)
-    return ops.bfp_conv2d(x, w, policy, stride, padding)
+                                       padding, out_policy=out_policy)
+    return ops.bfp_conv2d(x, w, policy, stride, padding,
+                          out_policy=out_policy)
 
 
 def _cuda_conv_supports(policy: BFPPolicy, w, stride, padding) -> bool:
@@ -147,4 +166,5 @@ def _cuda_conv_supports(policy: BFPPolicy, w, stride, padding) -> bool:
 register_backend("float", _float_matmul)
 for _name in ("cuda", "pallas"):
     register_backend(_name, _cuda_matmul, _cuda_supports, conv=_cuda_conv,
-                     conv_supports=_cuda_conv_supports)
+                     conv_supports=_cuda_conv_supports, act_prequant=True,
+                     out_quant=True)

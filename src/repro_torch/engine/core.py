@@ -13,6 +13,16 @@ to materialized im2col + :func:`gemm`:
 ``policy`` is None (float), a BFPPolicy, a PolicyMap, or a bound
 ``Plan`` (``engine.bind``), whose per-site entries then supply the
 resolved policy and backend.
+
+Activation wire format.  ``out_policy=`` asks an execution to emit the
+CONSUMING layer's quantized input ``{"m": int8 [.., N], "s": f32
+[.., N//bk]}`` instead of dense float: on a backend with ``out_quant``
+the requantization fuses into the kernel epilogue (the f32 activation
+never reaches device memory); anywhere else the engine requantizes the
+float output in a second step (``prequant_act``).  An ``x`` already in
+that format goes straight to an ``act_prequant`` backend, and is
+dequantized first for every other route (bit-identical by quantization
+idempotence).
 """
 from __future__ import annotations
 
@@ -20,55 +30,140 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.core.bfp import Rounding, Scheme
 from repro_torch.core.conv_utils import conv_weight_matrix, im2col
-from repro_torch.core.prequant import is_prequant, quantize_cnn_param_tree
+from repro_torch.core.prequant import (act_block, dequantize_act,
+                                       is_prequant, prequant_act,
+                                       quantize_cnn_param_tree)
 from repro_torch.engine import backends as BK
 from repro_torch.engine.policy_map import PolicyLike, resolve_policy
 
 __all__ = ["gemm", "conv2d", "conv2d_im2col", "prequantize_cnn"]
 
 
-def _gemm_exec(x: torch.Tensor, w: Any, pol,
-               backend: Optional[BK.Backend] = None, strict: bool = False,
-               path: Optional[str] = None) -> Tuple[torch.Tensor, BK.Backend]:
-    """Flatten leading dims, run the (given or selected) backend matmul."""
+def _check_out_policy(out_policy) -> None:
+    """Epilogue requantization is defined for exactly the activation wire
+    format: TILED blocks along the last axis, round-to-nearest, int8
+    mantissas (block_k | N and l_i <= 8 are checked where the sizes are
+    known: the ops epilogue rule and ``prequant_act``)."""
+    if out_policy.scheme is not Scheme.TILED or not out_policy.block_k:
+        raise ValueError(
+            "out_policy must be Scheme.TILED with an explicit block_k "
+            f"(activation wire format); got scheme={out_policy.scheme}, "
+            f"block_k={out_policy.block_k}")
+    if out_policy.rounding is not Rounding.ROUND:
+        raise ValueError("out_policy requantization is round-to-nearest "
+                         f"only; got {out_policy.rounding}")
+
+
+def _act_ok(be: BK.Backend, pol, w_block: Optional[int], x: dict) -> bool:
+    """Can ``be`` consume this wire-format x natively?  ``w_block`` is a
+    prequant weight's sidecar block (None for float weights), which must
+    match the activation block."""
+    if not be.act_prequant or pol is None:
+        return False
+    if x["m"].dtype != torch.int8:
+        return False
+    bk = act_block(x)
+    return pol.block_k in (None, bk) and w_block in (None, bk)
+
+
+def _act_ok_gemm(be: BK.Backend, pol, w, x2d: dict) -> bool:
+    w_block = (w["m"].shape[-2] // w["s"].shape[-2] if is_prequant(w)
+               else None)
+    return _act_ok(be, pol, w_block, x2d)
+
+
+def _act_ok_conv(be: BK.Backend, pol, w, x: dict) -> bool:
+    """Conv blocks are per (pixel, channel chunk), so the act block must
+    match a weight sidecar's HWIO-major K block."""
+    w_block = None
+    if is_prequant(w):
+        kh, kw, c, _ = w["m"].shape
+        w_block = kh * kw * c // w["s"].shape[-2]
+    return _act_ok(be, pol, w_block, x)
+
+
+def _reshape_out(out: Any, lead, n: int) -> Any:
+    """Restore leading dims on a dense or wire-format output."""
+    if is_prequant(out):
+        bq = out["m"].shape[-1] // out["s"].shape[-1]
+        return {"m": out["m"].reshape(*lead, n),
+                "s": out["s"].reshape(*lead, n // bq)}
+    return out.reshape(*lead, n)
+
+
+def _gemm_exec(x: Any, w: Any, pol, backend: Optional[BK.Backend] = None,
+               strict: bool = False, path: Optional[str] = None,
+               out_policy=None) -> Tuple[Any, BK.Backend]:
+    """Flatten leading dims, run the (given or selected) backend matmul.
+    ``x`` may be the wire format; ``out_policy`` requests it on the
+    output."""
     n = (w["m"] if is_prequant(w) else w).shape[-1]
-    lead = x.shape[:-1]
+    if out_policy is not None:
+        _check_out_policy(out_policy)
+    x_pq = is_prequant(x)
+    xm = x["m"] if x_pq else x
+    lead = xm.shape[:-1]
+    x2d = ({"m": xm.reshape(-1, xm.shape[-1]),
+            "s": x["s"].reshape(-1, x["s"].shape[-1])} if x_pq
+           else x.reshape(-1, x.shape[-1]))
     be = backend
     if be is None:
         be = (BK.get_backend("float") if pol is None
               else BK.select_backend(pol, w, strict=strict, path=path))
-    out = be.matmul(x.reshape(-1, x.shape[-1]), w, pol)
-    return out.reshape(*lead, n), be
+    if x_pq and not _act_ok_gemm(be, pol, w, x2d):
+        x2d = dequantize_act(x2d)
+    if out_policy is not None and be.out_quant and pol is not None:
+        out = be.matmul(x2d, w, pol, out_policy=out_policy)
+    else:
+        out = be.matmul(x2d, w, pol)
+        if out_policy is not None:
+            out = prequant_act(out, out_policy)
+    return _reshape_out(out, lead, n), be
 
 
-def _conv_exec(x: torch.Tensor, w: Any, pol, stride: int, padding: str,
+def _conv_exec(x: Any, w: Any, pol, stride: int, padding: str,
                backend: Optional[BK.Backend] = None, strict: bool = False,
-               path: Optional[str] = None) -> Tuple[torch.Tensor, BK.Backend]:
+               path: Optional[str] = None,
+               out_policy=None) -> Tuple[Any, BK.Backend]:
     """Fused conv when the backend has one and can honour (policy,
     geometry); honest materialized-im2col + matmul fallback otherwise.
     With ``backend=None`` the conv slot of the REQUESTED backend is
     consulted (policy None: the registered "float" backend)."""
+    if out_policy is not None:
+        _check_out_policy(out_policy)
     be = backend
     if be is None:
         be = BK.get_backend("float" if pol is None else pol.backend_name)
-    if be.conv is not None and be.conv_supports(pol, w, stride, padding):
-        return be.conv(x, w, pol, stride, padding), be
+    fused = be.conv is not None and be.conv_supports(pol, w, stride, padding)
+    if is_prequant(x) and not (fused and _act_ok_conv(be, pol, w, x)):
+        x = dequantize_act(x)
+    if fused:
+        if out_policy is not None and be.out_quant and pol is not None:
+            return be.conv(x, w, pol, stride, padding,
+                           out_policy=out_policy), be
+        out = be.conv(x, w, pol, stride, padding)
+        if out_policy is not None:
+            out = prequant_act(out, out_policy)
+        return out, be
     return _conv_im2col_exec(x, w, pol, stride, padding, backend=backend,
-                             strict=strict, path=path)
+                             strict=strict, path=path, out_policy=out_policy)
 
 
 def _conv_im2col_exec(x, w, pol, stride, padding, backend=None,
-                      strict=False,
-                      path=None) -> Tuple[torch.Tensor, BK.Backend]:
+                      strict=False, path=None,
+                      out_policy=None) -> Tuple[Any, BK.Backend]:
+    if is_prequant(x):      # im2col gathers float patches
+        x = dequantize_act(x)
     prequant = is_prequant(w)
     kh, kw, c, oc = (w["m"] if prequant else w).shape
     cols, (b, oh, ow) = im2col(x, kh, kw, stride, padding)
     wmat = ({"m": conv_weight_matrix(w["m"]), "s": w["s"]} if prequant
             else conv_weight_matrix(w))
     out, be = _gemm_exec(cols, wmat, pol, backend=backend, strict=strict,
-                         path=path)
-    return out.reshape(b, oh, ow, oc), be
+                         path=path, out_policy=out_policy)
+    return _reshape_out(out, (b, oh, ow), oc), be
 
 
 def _plan_cls():
@@ -77,38 +172,48 @@ def _plan_cls():
     return Plan
 
 
-def gemm(x: torch.Tensor, w: Any, policy: PolicyLike = None, *,
-         path: Optional[str] = None) -> torch.Tensor:
+def gemm(x: Any, w: Any, policy: PolicyLike = None, *,
+         path: Optional[str] = None, out_policy=None) -> Any:
     """``x[..., K] @ w[K, N]`` through the policy-selected BFP backend.
 
     ``w``: float [K, N] or prequant ``{"m": [K, N], "s": [K//bk, N]}``.
     Leading dims of ``x`` are flattened for the 2-D backends and restored.
+    ``x`` may be the activation wire format ``{"m": int8 [.., K], "s":
+    [.., K//bk]}``; ``out_policy=`` (the CONSUMING layer's policy)
+    returns that format instead of dense float.
     """
     if isinstance(policy, _plan_cls()):
-        return policy.gemm(x, w, path=path)
-    return _gemm_exec(x, w, resolve_policy(policy, path), path=path)[0]
+        return policy.gemm(x, w, path=path, out_policy=out_policy)
+    return _gemm_exec(x, w, resolve_policy(policy, path), path=path,
+                      out_policy=out_policy)[0]
 
 
-def conv2d(x: torch.Tensor, w: Any, policy: PolicyLike = None, *,
+def conv2d(x: Any, w: Any, policy: PolicyLike = None, *,
            stride: int = 1, padding: str = "SAME",
-           path: Optional[str] = None) -> torch.Tensor:
+           path: Optional[str] = None, out_policy=None) -> Any:
     """NHWC convolution through the policy-selected BFP backend.
 
-    ``x``: [B, H, W, C] float; ``w``: HWIO [kh, kw, C, OC] float or the
+    ``x``: [B, H, W, C] float, or the NHWC activation wire format (blocks
+    per (pixel, channel chunk)); ``w``: HWIO [kh, kw, C, OC] float or the
     prequant ``{"m": int8 HWIO, "s": [K//bk, OC]}`` wire format.
+    ``out_policy=`` returns the wire format, as in :func:`gemm`: chained
+    convs on the cuda backend hand ``{"m", "s"}`` activations layer to
+    layer with no f32 activation in device memory.
     """
     if isinstance(policy, _plan_cls()):
-        return policy.conv2d(x, w, path=path, stride=stride, padding=padding)
+        return policy.conv2d(x, w, path=path, stride=stride, padding=padding,
+                             out_policy=out_policy)
     return _conv_exec(x, w, resolve_policy(policy, path), stride, padding,
-                      path=path)[0]
+                      path=path, out_policy=out_policy)[0]
 
 
-def conv2d_im2col(x: torch.Tensor, w: Any, pol, stride: int = 1,
-                  padding: str = "SAME") -> torch.Tensor:
+def conv2d_im2col(x: Any, w: Any, pol, stride: int = 1,
+                  padding: str = "SAME", out_policy=None) -> Any:
     """The materialized-im2col route (paper Fig. 1's matrix form) through
     the GEMM engine; :func:`conv2d`'s fallback.  ``pol`` is an already
-    resolved BFPPolicy or None."""
-    return _conv_im2col_exec(x, w, pol, stride, padding)[0]
+    resolved BFPPolicy or None; a wire-format ``x`` is dequantized."""
+    return _conv_im2col_exec(x, w, pol, stride, padding,
+                             out_policy=out_policy)[0]
 
 
 def prequantize_cnn(params: Any, policy: PolicyLike) -> Any:

@@ -10,6 +10,12 @@ weights to ``device`` and pre-quantizes every eligible weight into the
     plan = engine.bind(params, policy)
     logits = vgg.apply(plan.params, x, plan)     # plan rides the policy arg
 
+Chained layers hand activations over in the wire format:
+
+    y = plan.conv2d(x, w1, path="conv3_1",
+                    out_policy=plan.out_policy_for("conv3_2"))
+    z = plan.conv2d(y, w2, path="conv3_2")
+
 Backward plans (``Site.dx``/``dw``) arrive with the training slice and
 stay None here.
 """
@@ -22,6 +28,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.core.bfp import Rounding, Scheme
 from repro_torch.core.policy import BFPPolicy
 from repro_torch.core.prequant import (cnn_rule_path, detect_tree_kind,
                                        is_prequant, map_with_path,
@@ -80,24 +87,43 @@ class Plan:
             return s.policy
         return resolve_policy(self.policy, path)
 
-    def gemm(self, x: torch.Tensor, w: Any, *,
-             path: Optional[str] = None) -> torch.Tensor:
+    def out_policy_for(self, path: Optional[str]) -> Optional[BFPPolicy]:
+        """The resolved policy for ``path`` IF its execution would
+        quantize its input to the activation wire format — the
+        ``out_policy=`` the PRODUCING layer should pass so the handoff
+        skips the f32 round-trip.  None when ``path`` is float, does not
+        quantize inputs, or its input blocks are not the wire format
+        (non-TILED, no block, not round-to-nearest, L_I > 8)."""
+        pol = self.resolve(path)
+        if pol is None or not pol.quantize_inputs:
+            return None
+        if (pol.scheme is not Scheme.TILED or not pol.block_k
+                or pol.rounding is not Rounding.ROUND or pol.l_i > 8):
+            return None
+        return pol
+
+    def gemm(self, x: Any, w: Any, *, path: Optional[str] = None,
+             out_policy=None) -> Any:
         site = self._sites.get(path)
         if site is not None and site.kind == "gemm":
             return _gemm_exec(x, w, site.policy, backend=site.backend,
-                              path=path)[0]
+                              path=path, out_policy=out_policy)[0]
         # unbound path: per-call resolution (strict kept)
         return _gemm_exec(x, w, resolve_policy(self.policy, path),
-                          strict=self.strict, path=path)[0]
+                          strict=self.strict, path=path,
+                          out_policy=out_policy)[0]
 
-    def conv2d(self, x: torch.Tensor, w: Any, *, path: Optional[str] = None,
-               stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    def conv2d(self, x: Any, w: Any, *, path: Optional[str] = None,
+               stride: int = 1, padding: str = "SAME",
+               out_policy=None) -> Any:
         site = self._sites.get(path)
         if site is not None and site.kind == "conv":
             return _conv_exec(x, w, site.policy, stride, padding,
-                              backend=site.backend, path=path)[0]
+                              backend=site.backend, path=path,
+                              out_policy=out_policy)[0]
         return _conv_exec(x, w, resolve_policy(self.policy, path), stride,
-                          padding, strict=self.strict, path=path)[0]
+                          padding, strict=self.strict, path=path,
+                          out_policy=out_policy)[0]
 
     def jit_forward(self, apply_fn):
         """``apply_fn(plan.params, x, plan)`` as one callable, cached per

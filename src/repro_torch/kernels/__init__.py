@@ -3,7 +3,8 @@ PyTorch versions (counterpart of ``repro.kernels``).
 
 ``launch_counts()`` / ``reset_launch_counts()`` read and clear the
 per-wrapper kernel launch counters, so a run can show which kernels the
-main path went through.
+main path went through; ``bfp_matmul_epilogue`` / ``bfp_conv2d_epilogue``
+count the launches that ran the fused requantize epilogue.
 """
 from typing import Dict
 

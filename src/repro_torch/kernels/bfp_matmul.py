@@ -1,20 +1,26 @@
 """Fused BFP matmul: CUDA kernel wrappers and their plain PyTorch versions.
 
-Counterpart of ``repro.kernels.bfp_matmul`` (``bfp_matmul_pallas`` and
-``bfp_matmul_prequant_pallas``).  Per K-tile of ``bk`` (the BFP block):
-block-format x per row and w per column, exact integer tile dot, then
-``acc = acc + part * (sx * sw)`` in f32, tiles in order 0 .. n_k-1.
+Counterpart of ``repro.kernels.bfp_matmul`` (``bfp_matmul_pallas``,
+``bfp_matmul_prequant_pallas``, ``bfp_matmul_xprequant_pallas`` and
+``bfp_matmul_xwprequant_pallas``).  Per K-tile of ``bk`` (the BFP block):
+block-format x per row and w per column — or take an operand's int8
+mantissas and f32 steps as given (the wire format) — exact integer tile
+dot, then ``acc = acc + part * (sx * sw)`` in f32, tiles in order
+0 .. n_k-1.  With ``out_bits`` set, the requantize epilogue block-formats
+the f32 accumulator per (row, ``out_block`` column chunk) and returns
+``(int8 mantissas [B, N], f32 steps [B, N // out_block])`` instead.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches ``csrc/bfp_matmul.cu`` (built on first use) or raises —
 there is no fallback from one to the other.  ``LAUNCHES`` counts kernel
-launches per wrapper.
+launches per wrapper, and under ``bfp_matmul_epilogue`` the launches
+that ran the fused epilogue.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -22,16 +28,29 @@ import torch.nn.functional as F
 from repro_torch.core.bfp import ZERO_BLOCK_EXP, pow2
 from repro_torch.kernels import _build
 
-__all__ = ["bfp_matmul", "bfp_matmul_prequant", "bfp_matmul_plain",
-           "bfp_matmul_prequant_plain", "check_overflow", "LAUNCHES"]
+__all__ = ["bfp_matmul", "bfp_matmul_prequant", "bfp_matmul_xprequant",
+           "bfp_matmul_xwprequant", "bfp_matmul_plain",
+           "bfp_matmul_prequant_plain", "bfp_matmul_xprequant_plain",
+           "bfp_matmul_xwprequant_plain", "requant_plain", "check_overflow",
+           "check_epilogue", "EPILOGUE_COLS", "LAUNCHES"]
 
-#: kernel launches per wrapper, incremented only where a kernel launches
-LAUNCHES = {"bfp_matmul": 0, "bfp_matmul_prequant": 0}
+#: kernel launches per wrapper, incremented only where a kernel launches;
+#: ``bfp_matmul_epilogue`` counts those that ran the fused epilogue
+LAUNCHES = {"bfp_matmul": 0, "bfp_matmul_prequant": 0,
+            "bfp_matmul_xprequant": 0, "bfp_matmul_xwprequant": 0,
+            "bfp_matmul_epilogue": 0}
+
+#: the column tile of the epilogue kernels (``bfp_tile.cuh`` EPI_COLS): an
+#: epilogue block must divide it, so each block lies in one thread block
+EPILOGUE_COLS = 128
 
 #: f32 holds every integer of magnitude <= 2^24 exactly
 _F32_EXACT_BOUND = 1 << 24
 
 _INT_MAX = (1 << 31) - 1
+
+#: f32 output, or the epilogue's (int8 mantissas, f32 steps)
+Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def check_overflow(bk: int, l_sum: int) -> None:
@@ -41,6 +60,27 @@ def check_overflow(bk: int, l_sum: int) -> None:
         raise ValueError(f"bk={bk} must be >= 1")
     if l_sum + math.ceil(math.log2(bk)) > 32:
         raise ValueError(f"bk={bk} overflows int32 for L_I+L_W={l_sum}")
+
+
+def check_epilogue(out_bits: Optional[int], out_block: Optional[int],
+                   n: int) -> None:
+    """The epilogue emits int8 mantissas (2 <= out_bits <= 8) in blocks
+    that tile N and lie inside one column tile of the kernel."""
+    if out_bits is None:
+        return
+    if not 2 <= out_bits <= 8:
+        raise ValueError(f"epilogue out_bits={out_bits} must be 2..8 "
+                         f"(int8 mantissa wire format)")
+    if out_block is None or out_block < 1 or n % out_block or \
+            EPILOGUE_COLS % out_block:
+        raise ValueError(f"epilogue out_block={out_block} must divide "
+                         f"N={n} and the {EPILOGUE_COLS}-column tile")
+
+
+def _check_wire(m: torch.Tensor, what: str) -> None:
+    if m.dtype != torch.int8:
+        raise ValueError(f"{what} kernel streams int8 mantissas, got "
+                         f"{m.dtype}")
 
 
 def _floor_log2(amax: torch.Tensor) -> torch.Tensor:
@@ -55,12 +95,26 @@ def block_format(tile: torch.Tensor, bits: int,
                  dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Block-format ``tile`` along ``dim`` -> (integer-valued f32
     mantissas, f32 steps with a keepdim 1 on ``dim``).  Blocks whose
-    amax is not > 0 get mantissa 0."""
+    amax is not > 0 (all zero, or holding a NaN) get mantissa 0."""
     amax = tile.abs().amax(dim=dim, keepdim=True)
     step = pow2(_floor_log2(amax) - (bits - 2))
     lim = float(2 ** (bits - 1) - 1)
     m = torch.clamp(torch.round(tile / step), -lim, lim)
     return torch.where(amax > 0, m, torch.zeros_like(m)), step
+
+
+def requant_plain(out: torch.Tensor, bits: int,
+                  block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the requantize epilogue: ``out [.., N]`` f32 ->
+    (int8 mantissas [.., N], f32 steps [.., N // block]), one block per
+    (row, ``block`` chunk of the last axis), the kernels' block rules
+    (repro's ``_requant_store``).  Equal to ``core.prequant.prequant_act``
+    wherever a block's amax is a normal float; they part on a NaN, inf or
+    subnormal amax, which ``prequant_act`` reads through frexp."""
+    lead, n = out.shape[:-1], out.shape[-1]
+    m, step = block_format(out.reshape(*lead, n // block, block), bits, -1)
+    return (m.to(torch.int8).reshape(*lead, n),
+            step.reshape(*lead, n // block))
 
 
 def _tile_dots(mx: torch.Tensor, mw: torch.Tensor, l_i: int, l_w: int,
@@ -74,19 +128,37 @@ def _tile_dots(mx: torch.Tensor, mw: torch.Tensor, l_i: int, l_w: int,
     return torch.matmul(mx.double(), mw.double()).float()
 
 
-def tiled_plain(x: torch.Tensor, mw: torch.Tensor, sw: torch.Tensor,
-                l_i: int, l_w: int, bk: int) -> torch.Tensor:
-    """The shared plain datapath: x [B, n_k*bk] f32 (zero K-padding),
-    weight mantissas mw [n_k, bk, N] and steps sw [n_k, 1, N]."""
-    b = x.shape[0]
-    n_k, _, n = mw.shape
-    xt = x.reshape(b, n_k, bk).transpose(0, 1)            # [n_k, B, bk]
-    mx, sx = block_format(xt, l_i, dim=2)                 # sx [n_k, B, 1]
+def accumulate_plain(mx: torch.Tensor, sx: torch.Tensor, mw: torch.Tensor,
+                     sw: torch.Tensor, l_i: int, l_w: int,
+                     bk: int) -> torch.Tensor:
+    """The shared plain datapath after block formatting: mantissas mx
+    [n_k, B, bk] and mw [n_k, bk, N], steps sx [n_k, B, 1] and sw
+    [n_k, 1, N] -> f32 [B, N], tiles accumulated in order."""
     part = _tile_dots(mx, mw, l_i, l_w, bk)               # [n_k, B, N]
-    out = torch.zeros((b, n), dtype=torch.float32, device=x.device)
-    for t in range(n_k):
+    out = torch.zeros(part.shape[1:], dtype=torch.float32, device=mx.device)
+    for t in range(part.shape[0]):
         out = out + part[t] * (sx[t] * sw[t])
     return out
+
+
+def tiled_plain(x: torch.Tensor, mw: torch.Tensor, sw: torch.Tensor,
+                l_i: int, l_w: int, bk: int) -> torch.Tensor:
+    """x [B, n_k*bk] f32 (zero K-padding) block-formatted per (row,
+    K-tile), then :func:`accumulate_plain` with the weight mantissas mw
+    [n_k, bk, N] and steps sw [n_k, 1, N]."""
+    xt = x.reshape(x.shape[0], mw.shape[0], bk).transpose(0, 1)
+    mx, sx = block_format(xt, l_i, dim=2)                 # sx [n_k, B, 1]
+    return accumulate_plain(mx, sx, mw, sw, l_i, l_w, bk)
+
+
+def wire_plain(xm: torch.Tensor, xs: torch.Tensor, mw: torch.Tensor,
+               sw: torch.Tensor, l_w: int, bk: int) -> torch.Tensor:
+    """:func:`accumulate_plain` on wire-format x: int8 mantissas xm
+    [B, n_k*bk] and steps xs [B, n_k] taken as given."""
+    b, n_k = xs.shape
+    mx = xm.float().reshape(b, n_k, bk).transpose(0, 1)
+    sx = xs.float().t().reshape(n_k, b, 1)
+    return accumulate_plain(mx, sx, mw, sw, 8, l_w, bk)
 
 
 def _pad_k(a: torch.Tensor, kp: int, dim: int) -> torch.Tensor:
@@ -97,27 +169,68 @@ def _pad_k(a: torch.Tensor, kp: int, dim: int) -> torch.Tensor:
     return F.pad(a, pad)
 
 
-def bfp_matmul_plain(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
-                     bk: int) -> torch.Tensor:
-    """Plain version of the inline-weight kernel; K zero-pads to a ``bk``
-    multiple (inert: no block amax changes, zero products)."""
+def _weights_inline(w: torch.Tensor, l_w: int, bk: int):
+    """Float w [K, N] zero-padded to a ``bk`` multiple and block-formatted
+    per (column, K-tile) -> (mw [n_k, bk, N], sw [n_k, 1, N])."""
     k, n = w.shape
     kp = -(-k // bk) * bk
-    x = _pad_k(x.float(), kp, 1)
     wt = _pad_k(w.float(), kp, 0).reshape(kp // bk, bk, n)
-    mw, sw = block_format(wt, l_w, dim=1)                 # sw [n_k, 1, N]
-    return tiled_plain(x, mw, sw, l_i, l_w, bk)
+    return block_format(wt, l_w, dim=1)
+
+
+def _weights_wire(wm: torch.Tensor, ws: torch.Tensor, bk: int):
+    k, n = wm.shape
+    return (wm.float().reshape(k // bk, bk, n),
+            ws.float().reshape(k // bk, 1, n))
+
+
+def _finish_plain(out: torch.Tensor, out_bits, out_block) -> Out:
+    return out if out_bits is None else requant_plain(out, out_bits,
+                                                      out_block)
+
+
+def bfp_matmul_plain(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
+                     bk: int, out_bits: Optional[int] = None,
+                     out_block: Optional[int] = None) -> Out:
+    """Plain version of the inline kernel; K zero-pads to a ``bk``
+    multiple (inert: no block amax changes, zero products)."""
+    mw, sw = _weights_inline(w, l_w, bk)
+    out = tiled_plain(_pad_k(x.float(), mw.shape[0] * bk, 1), mw, sw, l_i,
+                      l_w, bk)
+    return _finish_plain(out, out_bits, out_block)
 
 
 def bfp_matmul_prequant_plain(x: torch.Tensor, wm: torch.Tensor,
-                              ws: torch.Tensor, l_i: int, l_w: int,
-                              bk: int) -> torch.Tensor:
+                              ws: torch.Tensor, l_i: int, l_w: int, bk: int,
+                              out_bits: Optional[int] = None,
+                              out_block: Optional[int] = None) -> Out:
     """Plain version of the prequant kernel: ``wm`` int8 [K, N], ``ws``
     f32 steps [K//bk, N], K a ``bk`` multiple."""
-    k, n = wm.shape
-    mw = wm.float().reshape(k // bk, bk, n)
-    sw = ws.float().reshape(k // bk, 1, n)
-    return tiled_plain(x.float(), mw, sw, l_i, min(l_w, 8), bk)
+    mw, sw = _weights_wire(wm, ws, bk)
+    out = tiled_plain(x.float(), mw, sw, l_i, min(l_w, 8), bk)
+    return _finish_plain(out, out_bits, out_block)
+
+
+def bfp_matmul_xprequant_plain(xm: torch.Tensor, xs: torch.Tensor,
+                               w: torch.Tensor, l_i: int, l_w: int, bk: int,
+                               out_bits: Optional[int] = None,
+                               out_block: Optional[int] = None) -> Out:
+    """Plain version of the x-prequant kernel: ``xm`` int8 [B, K], ``xs``
+    f32 steps [B, K//bk], float ``w`` quantized per (column, K-tile)."""
+    mw, sw = _weights_inline(w, l_w, bk)
+    return _finish_plain(wire_plain(xm, xs, mw, sw, l_w, bk), out_bits,
+                         out_block)
+
+
+def bfp_matmul_xwprequant_plain(xm: torch.Tensor, xs: torch.Tensor,
+                                wm: torch.Tensor, ws: torch.Tensor, l_i: int,
+                                l_w: int, bk: int,
+                                out_bits: Optional[int] = None,
+                                out_block: Optional[int] = None) -> Out:
+    """Plain version of the kernel with both operands on the wire."""
+    mw, sw = _weights_wire(wm, ws, bk)
+    return _finish_plain(wire_plain(xm, xs, mw, sw, 8, bk), out_bits,
+                         out_block)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +241,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("bfp_matmul")
     fn = lib.bfp_matmul_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -148,62 +261,123 @@ def _check_cuda(*tensors: Optional[torch.Tensor]) -> torch.device:
     return dev
 
 
-def _launch(x, w, ws, l_i, l_w, bk, name) -> torch.Tensor:
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _outputs(shape, out_bits, out_block, dev):
+    """Kernel outputs: f32 ``shape``, or int8 ``shape`` + f32 steps."""
+    if out_bits is None:
+        return torch.empty(shape, dtype=torch.float32, device=dev), None
+    return (torch.empty(shape, dtype=torch.int8, device=dev),
+            torch.empty((*shape[:-1], shape[-1] // out_block),
+                        dtype=torch.float32, device=dev))
+
+
+def _launch(x, xs, w, ws, l_i, l_w, bk, out_bits, out_block, name) -> Out:
     m, k = x.shape
     n = w.shape[1]
     if max(m, n, k) > _INT_MAX or -(-n // 64) > 65535:
         raise ValueError(f"shape ({m},{k})x({k},{n}) exceeds the kernel's "
                          f"int32 indexing / grid")
-    dev = _check_cuda(x, w, ws)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    if m == 0 or n == 0:
-        return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().bfp_matmul_launch(
-            x.data_ptr(), w.data_ptr(), None if ws is None else ws.data_ptr(),
-            out.data_ptr(), m, n, k, bk, l_i, l_w, int(ws is not None),
-            stream)
-    if rc:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-    return out
+    dev = _check_cuda(x, xs, w, ws)
+    out, out_s = _outputs((m, n), out_bits, out_block, dev)
+    if m and n:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = _lib().bfp_matmul_launch(
+                x.data_ptr(), _ptr(xs), w.data_ptr(), _ptr(ws),
+                out.data_ptr(), _ptr(out_s), m, n, k, bk, l_i, l_w,
+                int(xs is not None), int(ws is not None), out_bits or 0,
+                out_block or 0, stream)
+        if rc:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{rc}")
+        LAUNCHES[name] += 1
+        if out_bits is not None:
+            LAUNCHES["bfp_matmul_epilogue"] += 1
+    return out if out_bits is None else (out, out_s)
+
+
+def _check_operands(x_shape, w_shape, bk, xs=None, ws=None) -> None:
+    b, k = x_shape
+    k2, n = w_shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch {tuple(x_shape)} @ "
+                         f"{tuple(w_shape)}")
+    if xs is not None and (k % bk or tuple(xs.shape) != (b, k // bk)):
+        raise ValueError(f"activation sidecar {tuple(xs.shape)} != "
+                         f"{(b, k // bk)} for bk={bk}")
+    if ws is not None and (k % bk or tuple(ws.shape) != (k // bk, n)):
+        raise ValueError(f"scale sidecar {tuple(ws.shape)} != "
+                         f"{(k // bk, n)} for bk={bk}")
 
 
 def bfp_matmul(x: torch.Tensor, w: torch.Tensor, *, l_i: int, l_w: int,
-               bk: int) -> torch.Tensor:
+               bk: int, out_bits: Optional[int] = None,
+               out_block: Optional[int] = None) -> Out:
     """x[B,K] @ w[K,N] f32 through the fused BFP datapath, both operands
     quantized per K-tile of ``bk`` (Scheme.TILED, block_k = bk)."""
-    b, k = x.shape
-    k2, n = w.shape
-    if k != k2:
-        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
-                         f"{tuple(w.shape)}")
+    _check_operands(x.shape, w.shape, bk)
     check_overflow(bk, l_i + l_w)
+    check_epilogue(out_bits, out_block, w.shape[1])
     if x.device.type == "cpu":
-        return bfp_matmul_plain(x, w, l_i, l_w, bk)
-    return _launch(x.float().contiguous(), w.float().contiguous(), None,
-                   l_i, l_w, bk, "bfp_matmul")
+        return bfp_matmul_plain(x, w, l_i, l_w, bk, out_bits, out_block)
+    return _launch(x.float().contiguous(), None, w.float().contiguous(),
+                   None, l_i, l_w, bk, out_bits, out_block, "bfp_matmul")
 
 
 def bfp_matmul_prequant(x: torch.Tensor, wm: torch.Tensor, ws: torch.Tensor,
-                        *, l_i: int, l_w: int, bk: int) -> torch.Tensor:
+                        *, l_i: int, l_w: int, bk: int,
+                        out_bits: Optional[int] = None,
+                        out_block: Optional[int] = None) -> Out:
     """x[B,K] @ prequant weight (int8 mantissa [K,N] + steps [K//bk,N]).
     ``l_w`` only sizes the overflow check."""
-    b, k = x.shape
-    k2, n = wm.shape
-    if k != k2:
-        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
-                         f"{tuple(wm.shape)}")
+    _check_operands(x.shape, wm.shape, bk, ws=ws)
     check_overflow(bk, l_i + l_w)
-    if k % bk or tuple(ws.shape) != (k // bk, n):
-        raise ValueError(f"scale sidecar {tuple(ws.shape)} != "
-                         f"{(k // bk, n)} for bk={bk}")
-    if wm.dtype != torch.int8:
-        raise ValueError(f"prequant kernel streams int8 mantissas, got "
-                         f"{wm.dtype}")
+    _check_wire(wm, "prequant")
+    check_epilogue(out_bits, out_block, wm.shape[1])
     if x.device.type == "cpu":
-        return bfp_matmul_prequant_plain(x, wm, ws, l_i, l_w, bk)
-    return _launch(x.float().contiguous(), wm.contiguous(),
-                   ws.float().contiguous(), l_i, l_w, bk,
-                   "bfp_matmul_prequant")
+        return bfp_matmul_prequant_plain(x, wm, ws, l_i, l_w, bk, out_bits,
+                                         out_block)
+    return _launch(x.float().contiguous(), None, wm.contiguous(),
+                   ws.float().contiguous(), l_i, l_w, bk, out_bits,
+                   out_block, "bfp_matmul_prequant")
+
+
+def bfp_matmul_xprequant(xm: torch.Tensor, xs: torch.Tensor, w: torch.Tensor,
+                         *, l_i: int, l_w: int, bk: int,
+                         out_bits: Optional[int] = None,
+                         out_block: Optional[int] = None) -> Out:
+    """Wire-format activations (int8 mantissa [B,K] + steps [B,K//bk],
+    the previous layer's epilogue output) @ float w[K,N].  ``l_i`` only
+    sizes the overflow check."""
+    _check_operands(xm.shape, w.shape, bk, xs=xs)
+    check_overflow(bk, l_i + l_w)
+    _check_wire(xm, "activation-prequant")
+    check_epilogue(out_bits, out_block, w.shape[1])
+    if xm.device.type == "cpu":
+        return bfp_matmul_xprequant_plain(xm, xs, w, l_i, l_w, bk, out_bits,
+                                          out_block)
+    return _launch(xm.contiguous(), xs.float().contiguous(),
+                   w.float().contiguous(), None, l_i, l_w, bk, out_bits,
+                   out_block, "bfp_matmul_xprequant")
+
+
+def bfp_matmul_xwprequant(xm: torch.Tensor, xs: torch.Tensor,
+                          wm: torch.Tensor, ws: torch.Tensor, *, l_i: int,
+                          l_w: int, bk: int, out_bits: Optional[int] = None,
+                          out_block: Optional[int] = None) -> Out:
+    """Both operands on the wire: no quantization in the kernel, only
+    int8 dots and power-of-two rescales."""
+    _check_operands(xm.shape, wm.shape, bk, xs=xs, ws=ws)
+    check_overflow(bk, l_i + l_w)
+    _check_wire(xm, "activation-prequant")
+    _check_wire(wm, "prequant")
+    check_epilogue(out_bits, out_block, wm.shape[1])
+    if xm.device.type == "cpu":
+        return bfp_matmul_xwprequant_plain(xm, xs, wm, ws, l_i, l_w, bk,
+                                           out_bits, out_block)
+    return _launch(xm.contiguous(), xs.float().contiguous(), wm.contiguous(),
+                   ws.float().contiguous(), l_i, l_w, bk, out_bits,
+                   out_block, "bfp_matmul_xwprequant")

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from repro_torch.core.policy import PALLAS_TILED, TPU_TILED
-from repro_torch.core.prequant import prequant_conv_leaf, prequant_leaf
+from repro_torch.core.prequant import (prequant_act, prequant_conv_leaf,
+                                       prequant_leaf)
 from repro_torch import engine as EG
 from repro_torch import kernels as K
 from repro_torch.kernels import bfp_conv as KC
@@ -75,6 +76,128 @@ def test_cuda_kernels_keep_the_reference_rounding(cuda):
     wc = w[:8].reshape(1, 1, 8, 6).contiguous()
     got = KC.bfp_conv2d(xc, wc, l_i=8, l_w=8, bk=8)
     assert torch.equal(got, KC.bfp_conv2d_plain(xc, wc, 8, 8, 8))
+
+
+# (B, K, N, bk, out_block): out_block 128 spans two 64-column groups;
+# ragged B, K a block multiple (the wire format needs bk | K)
+WIRE_MM_CASES = [(5, 256, 384, 128, 128), (7, 96, 40, 32, 8),
+                 (9, 192, 192, 64, 64), (3, 64, 48, 16, 16)]
+# (stride, kernel, padding, bk, C, OC, out_block), bk | C
+WIRE_CONV_CASES = [(1, 3, "SAME", 16, 32, 256, 128),
+                   (2, 3, "SAME", 8, 16, 40, 8),
+                   (1, 1, "VALID", 32, 64, 192, 64),
+                   (2, 3, "VALID", 16, 16, 32, 32)]
+
+
+def _hazard_rows(x):
+    """Rows whose accumulators hold inf and NaN (huge activations) and
+    zeros (an all-zero row), for the epilogue's block rules."""
+    x = x.clone()
+    x[1] = 3e38 * torch.sign(x[1])
+    x[2] = 0.0
+    return x
+
+
+def _bits(a):
+    """Bit patterns of a float tensor, every NaN as one canonical NaN
+    (``torch.equal`` would call NaN != NaN; the hazard rows make some)."""
+    if not a.is_floating_point():
+        return a
+    return torch.where(a.isnan(), torch.full_like(a, float("nan")),
+                       a).view(torch.int32)
+
+
+def _both_equal(got, want, what):
+    if not isinstance(want, tuple):
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w)), what
+
+
+@pytest.mark.gpu
+def test_cuda_wire_kernels_and_epilogue_match_plain_versions(cuda):
+    """The x-prequant and xw-prequant kernels, and the requantize
+    epilogue on all eight entry points, against their plain versions on
+    the card: bit-equal, including inf, NaN and zero accumulator blocks
+    (and a wire x whose steps are inf / NaN)."""
+    pol8 = TPU_TILED.with_(straight_through=False)
+    for case in WIRE_MM_CASES:
+        b, k, n, bk, ob = case
+        pol = pol8.with_(block_k=bk)
+        x = _hazard_rows(t(normal((b, k), seed=k)).to(cuda))
+        w = t(normal((k, n), seed=n, scale=1e3)).to(cuda)
+        d = prequant_leaf(w, pol)
+        xq = prequant_act(t(normal((b, k), seed=b)).to(cuda), pol)
+        xq["s"][1, 0] = float("inf")
+        xq["s"][2, -1] = float("nan")
+        xm, xs = xq["m"], xq["s"]
+        for epi in ({}, {"out_bits": 8, "out_block": ob},
+                    {"out_bits": 5, "out_block": ob}):
+            calls = [
+                (KM.bfp_matmul, KM.bfp_matmul_plain, (x, w)),
+                (KM.bfp_matmul_prequant, KM.bfp_matmul_prequant_plain,
+                 (x, d["m"], d["s"])),
+                (KM.bfp_matmul_xprequant, KM.bfp_matmul_xprequant_plain,
+                 (xm, xs, w)),
+                (KM.bfp_matmul_xwprequant, KM.bfp_matmul_xwprequant_plain,
+                 (xm, xs, d["m"], d["s"]))]
+            for kern, plain, args in calls:
+                got = kern(*args, l_i=8, l_w=8, bk=bk, **epi)
+                want = plain(*args, 8, 8, bk, epi.get("out_bits"),
+                             epi.get("out_block"))
+                _both_equal(got, want, (kern.__name__, case, epi))
+    for case in WIRE_CONV_CASES:
+        s, kk, pad, bk, c, oc, ob = case
+        pol = pol8.with_(block_k=bk)
+        x = t(normal((2, 9, 10, c), seed=c + s)).to(cuda)
+        x[1, 4] = 3e38 * torch.sign(x[1, 4])
+        x[0, :, 2] = 0.0
+        w = t(normal((kk, kk, c, oc), seed=oc, scale=1e3)).to(cuda)
+        d = prequant_conv_leaf(w, pol)
+        xq = prequant_act(t(normal((2, 9, 10, c), seed=oc + 1)).to(cuda), pol)
+        xq["s"][0, 3, 3, 0] = float("inf")
+        xq["s"][1, 5, 6, -1] = float("nan")
+        xm, xs = xq["m"], xq["s"]
+        for epi in ({}, {"out_bits": 8, "out_block": ob}):
+            calls = [
+                (KC.bfp_conv2d, KC.bfp_conv2d_plain, (x, w)),
+                (KC.bfp_conv2d_prequant, KC.bfp_conv2d_prequant_plain,
+                 (x, d["m"], d["s"])),
+                (KC.bfp_conv2d_xprequant, KC.bfp_conv2d_xprequant_plain,
+                 (xm, xs, w)),
+                (KC.bfp_conv2d_xwprequant, KC.bfp_conv2d_xwprequant_plain,
+                 (xm, xs, d["m"], d["s"]))]
+            for kern, plain, args in calls:
+                got = kern(*args, l_i=8, l_w=8, bk=bk, stride=s, padding=pad,
+                           **epi)
+                want = plain(*args, 8, 8, bk, s, pad, epi.get("out_bits"),
+                             epi.get("out_block"))
+                _both_equal(got, want, (kern.__name__, case, epi))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_chain_on_the_wire_equals_the_float_chain(cuda):
+    """Through the engine on the card: each producer's fused epilogue
+    equals ``prequant_act`` of its f32 output, and the wire chain's end
+    equals the float-activation chain (quantization idempotence)."""
+    pol = PALLAS_TILED.with_(straight_through=False)
+    x = t(normal((2, 14, 14, 256), seed=5)).to(cuda)
+    w1 = t(normal((3, 3, 256, 256), seed=6, scale=0.03)).to(cuda)
+    w2 = t(normal((3, 3, 256, 128), seed=7, scale=0.03)).to(cuda)
+    for prequant in (False, True):
+        a, b = ((prequant_conv_leaf(w1, pol), prequant_conv_leaf(w2, pol))
+                if prequant else (w1, w2))
+        K.reset_launch_counts()
+        y = EG.conv2d(x, a, pol, out_policy=pol)
+        z = EG.conv2d(y, b, pol)
+        counts = K.launch_counts()
+        assert counts["bfp_conv2d_epilogue"] == 1
+        assert counts["bfp_conv2d_xwprequant" if prequant
+                      else "bfp_conv2d_xprequant"] == 1
+        two = prequant_act(EG.conv2d(x, a, pol), pol)
+        assert torch.equal(y["m"], two["m"]) and torch.equal(y["s"], two["s"])
+        assert torch.equal(z, EG.conv2d(EG.conv2d(x, a, pol), b, pol))
 
 
 @pytest.mark.gpu
