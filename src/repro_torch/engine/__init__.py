@@ -3,7 +3,8 @@
 first-class pre-quantized weights."""
 from repro_torch.core.prequant import (act_block, dequantize_act, is_prequant,
                                        prequant_act)
-from repro_torch.engine.backends import (BackendUnsupportedError,
+from repro_torch.engine.backends import (BackendFallbackWarning,
+                                         BackendUnsupportedError,
                                          available_backends, get_backend,
                                          register_backend, select_backend)
 from repro_torch.engine.core import (conv2d, conv2d_im2col, gemm,
@@ -18,5 +19,5 @@ __all__ = [
     "bind", "Plan", "Site",
     "PolicyMap", "PolicyLike", "resolve_policy", "join_path",
     "register_backend", "get_backend", "available_backends",
-    "select_backend", "BackendUnsupportedError",
+    "select_backend", "BackendFallbackWarning", "BackendUnsupportedError",
 ]

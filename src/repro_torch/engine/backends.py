@@ -1,36 +1,44 @@
 """Backend registry for the BFP GEMM engine (counterpart of
 ``repro.engine.backends``).
 
-  float   disabled-quant baseline: plain ``x @ w`` (prequant weights are
-          dequantized first) — the paper's floating-point reference.
-  cuda    the hand-written Hopper kernels (``repro_torch.kernels``):
-          Scheme.TILED only; with prequant weights it runs the
-          sidecar-consuming kernel variant, with wire-format activations
-          the x-prequant variants, and it fuses the requantize epilogue
-          (``act_prequant``/``out_quant``).  Registered under "pallas"
-          too, so policies and PolicyMap JSON written by ``repro`` (whose
-          fused-kernel backend has that name) load unchanged.
+  float     disabled-quant baseline: plain ``x @ w`` (prequant weights are
+            dequantized first) — the paper's floating-point reference.
+  emulated  the integer datapath in plain PyTorch (``core.bfp_dot``):
+            exact fixed-point MACs, every scheme and rounding; no kernel.
+  cuda      the hand-written Hopper kernels (``repro_torch.kernels``):
+            Scheme.TILED only; with prequant weights it runs the
+            sidecar-consuming kernel variant, with wire-format activations
+            the x-prequant variants, and it fuses the requantize epilogue
+            (``act_prequant``/``out_quant``).  Registered under "pallas"
+            too, so policies and PolicyMap JSON written by ``repro`` (whose
+            fused-kernel backend has that name) load unchanged.
 
-``select_backend`` honours ``policy.backend`` and never runs a policy a
-backend cannot execute faithfully.  ``repro`` downgrades such a policy
-to its "emulated" integer datapath; that backend is not ported yet, so
-here an unsupported policy raises.
+``select_backend`` honours ``policy.backend`` but falls back to
+``emulated`` when the requested backend cannot execute the policy
+faithfully (a paper scheme, stochastic or truncating rounding, an int16
+prequant mantissa on the kernels) — with a
+:class:`BackendFallbackWarning`, or a :class:`BackendUnsupportedError`
+under ``strict``, exactly as ``repro`` does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import warnings
+from typing import Callable, Dict, Optional, Set, Tuple
 
 import torch
 
 from repro_torch.core.bfp import Rounding, Scheme
+from repro_torch.core.bfp_dot import bfp_matmul_2d, bfp_matmul_2d_prequant
 from repro_torch.core.policy import BFPPolicy
 from repro_torch.core.prequant import dequantize_prequant, is_prequant
 
 __all__ = ["Backend", "register_backend", "get_backend",
-           "available_backends", "select_backend", "BackendUnsupportedError"]
+           "available_backends", "select_backend",
+           "BackendFallbackWarning", "BackendUnsupportedError"]
 
-#: (x2d, w_or_prequant, policy) -> out [B, N]
+#: (x2d, w_or_prequant, policy[, noise=]) -> out [B, N]; ``noise`` (the
+#: uniform noise of x's STOCHASTIC rounding) is passed only when given
 MatmulFn = Callable[[torch.Tensor, object, Optional[BFPPolicy]],
                     torch.Tensor]
 
@@ -86,17 +94,33 @@ def available_backends():
     return sorted(_REGISTRY)
 
 
+class BackendFallbackWarning(UserWarning):
+    """A requested backend could not honour a policy and was downgraded."""
+
+
 class BackendUnsupportedError(ValueError):
-    """The requested backend cannot honour the policy."""
+    """strict mode: the requested backend cannot honour the policy."""
+
+
+#: (backend, path) pairs already warned about on the bare per-call path:
+#: a downgrade is warned once per site, not per forward.  ``engine.bind``
+#: passes a fresh set per bind, so every plan reports its own downgrades.
+_WARNED: Set[Tuple[str, Optional[str]]] = set()
 
 
 def select_backend(policy: BFPPolicy, w, *, strict: bool = False,
-                   path: Optional[str] = None) -> Backend:
-    """The requested backend if it supports (policy, w); otherwise raise
-    :class:`BackendUnsupportedError`.  ``repro`` downgrades such a policy
-    to its "emulated" backend unless ``strict``; that backend is not
-    ported yet, so here nothing runs in place of the requested
-    execution, strict or not (``strict`` only changes the message)."""
+                   path: Optional[str] = None,
+                   warned: Optional[Set] = None) -> Backend:
+    """The requested backend if it supports (policy, w); else emulated.
+
+    The downgrade is never silent: it emits a
+    :class:`BackendFallbackWarning`, once per (backend, site) against
+    ``warned`` (callers like ``engine.bind`` pass a fresh set per bind;
+    per-call dispatch shares a process-wide one); with ``strict=True`` it
+    raises :class:`BackendUnsupportedError` instead, so a deployment that
+    asked for the kernels fails loudly rather than drifting onto the
+    emulated path.
+    """
     be = get_backend(policy.backend_name)
     if be.supports(policy, w):
         return be
@@ -106,22 +130,33 @@ def select_backend(policy: BFPPolicy, w, *, strict: bool = False,
     if strict:
         raise BackendUnsupportedError(
             msg + "; refusing the emulated fallback (strict mode)")
-    raise BackendUnsupportedError(
-        msg + "; its fallback, the 'emulated' backend, is not ported to "
-              "repro_torch yet")
+    reg = _WARNED if warned is None else warned
+    if (be.name, path) not in reg:
+        reg.add((be.name, path))
+        warnings.warn(msg + "; falling back to 'emulated'",
+                      BackendFallbackWarning, stacklevel=2)
+    return _REGISTRY["emulated"]
 
 
 # ---------------------------------------------------------------------------
 # Built-in backends
 # ---------------------------------------------------------------------------
 
-def _float_matmul(x2d, w, policy=None):
+def _float_matmul(x2d, w, policy=None, noise=None):
     if is_prequant(w):
         w = dequantize_prequant(w, x2d.dtype)
     return x2d @ w
 
 
-def _cuda_matmul(x2d, w, policy, out_policy=None):
+def _emulated_matmul(x2d, w, policy, noise=None):
+    if is_prequant(w):
+        out = bfp_matmul_2d_prequant(x2d, w["m"], w["s"], policy, noise)
+        return out.to(x2d.dtype)
+    out = bfp_matmul_2d(x2d, w, policy, noise)
+    return out.to(torch.result_type(x2d, w))
+
+
+def _cuda_matmul(x2d, w, policy, out_policy=None, noise=None):
     # x2d may be the activation wire format (a previous layer's epilogue
     # output): ops dispatches the x-prequant kernels; out_policy asks for
     # the fused requantize epilogue.
@@ -164,6 +199,7 @@ def _cuda_conv_supports(policy: BFPPolicy, w, stride, padding) -> bool:
 
 
 register_backend("float", _float_matmul)
+register_backend("emulated", _emulated_matmul)
 for _name in ("cuda", "pallas"):
     register_backend(_name, _cuda_matmul, _cuda_supports, conv=_cuda_conv,
                      conv_supports=_cuda_conv_supports, act_prequant=True,

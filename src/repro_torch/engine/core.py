@@ -95,10 +95,12 @@ def _reshape_out(out: Any, lead, n: int) -> Any:
 
 def _gemm_exec(x: Any, w: Any, pol, backend: Optional[BK.Backend] = None,
                strict: bool = False, path: Optional[str] = None,
-               out_policy=None) -> Tuple[Any, BK.Backend]:
+               out_policy=None, warned=None,
+               noise: Optional[torch.Tensor] = None) -> Tuple[Any, BK.Backend]:
     """Flatten leading dims, run the (given or selected) backend matmul.
     ``x`` may be the wire format; ``out_policy`` requests it on the
-    output."""
+    output; ``noise`` (STOCHASTIC rounding of x) reaches the matmul only
+    when given."""
     n = (w["m"] if is_prequant(w) else w).shape[-1]
     if out_policy is not None:
         _check_out_policy(out_policy)
@@ -111,13 +113,15 @@ def _gemm_exec(x: Any, w: Any, pol, backend: Optional[BK.Backend] = None,
     be = backend
     if be is None:
         be = (BK.get_backend("float") if pol is None
-              else BK.select_backend(pol, w, strict=strict, path=path))
+              else BK.select_backend(pol, w, strict=strict, path=path,
+                                     warned=warned))
     if x_pq and not _act_ok_gemm(be, pol, w, x2d):
         x2d = dequantize_act(x2d)
+    kw = {} if noise is None else {"noise": noise}
     if out_policy is not None and be.out_quant and pol is not None:
-        out = be.matmul(x2d, w, pol, out_policy=out_policy)
+        out = be.matmul(x2d, w, pol, out_policy=out_policy, **kw)
     else:
-        out = be.matmul(x2d, w, pol)
+        out = be.matmul(x2d, w, pol, **kw)
         if out_policy is not None:
             out = prequant_act(out, out_policy)
     return _reshape_out(out, lead, n), be
@@ -125,12 +129,15 @@ def _gemm_exec(x: Any, w: Any, pol, backend: Optional[BK.Backend] = None,
 
 def _conv_exec(x: Any, w: Any, pol, stride: int, padding: str,
                backend: Optional[BK.Backend] = None, strict: bool = False,
-               path: Optional[str] = None,
-               out_policy=None) -> Tuple[Any, BK.Backend]:
+               path: Optional[str] = None, out_policy=None,
+               warned=None) -> Tuple[Any, BK.Backend]:
     """Fused conv when the backend has one and can honour (policy,
-    geometry); honest materialized-im2col + matmul fallback otherwise.
-    With ``backend=None`` the conv slot of the REQUESTED backend is
-    consulted (policy None: the registered "float" backend)."""
+    geometry); honest materialized-im2col + matmul fallback otherwise
+    (the emulated backend, and any policy the kernels cannot run, take
+    that route).  With ``backend=None`` the conv slot of the REQUESTED
+    backend is consulted (policy None: the registered "float" backend)
+    and the im2col GEMM selects with support checks, falling back to
+    emulated with a warning unless ``strict``."""
     if out_policy is not None:
         _check_out_policy(out_policy)
     be = backend
@@ -148,12 +155,13 @@ def _conv_exec(x: Any, w: Any, pol, stride: int, padding: str,
             out = prequant_act(out, out_policy)
         return out, be
     return _conv_im2col_exec(x, w, pol, stride, padding, backend=backend,
-                             strict=strict, path=path, out_policy=out_policy)
+                             strict=strict, path=path, out_policy=out_policy,
+                             warned=warned)
 
 
 def _conv_im2col_exec(x, w, pol, stride, padding, backend=None,
-                      strict=False, path=None,
-                      out_policy=None) -> Tuple[Any, BK.Backend]:
+                      strict=False, path=None, out_policy=None,
+                      warned=None) -> Tuple[Any, BK.Backend]:
     if is_prequant(x):      # im2col gathers float patches
         x = dequantize_act(x)
     prequant = is_prequant(w)
@@ -162,7 +170,7 @@ def _conv_im2col_exec(x, w, pol, stride, padding, backend=None,
     wmat = ({"m": conv_weight_matrix(w["m"]), "s": w["s"]} if prequant
             else conv_weight_matrix(w))
     out, be = _gemm_exec(cols, wmat, pol, backend=backend, strict=strict,
-                         path=path, out_policy=out_policy)
+                         path=path, out_policy=out_policy, warned=warned)
     return _reshape_out(out, (b, oh, ow), oc), be
 
 
@@ -173,19 +181,23 @@ def _plan_cls():
 
 
 def gemm(x: Any, w: Any, policy: PolicyLike = None, *,
-         path: Optional[str] = None, out_policy=None) -> Any:
+         path: Optional[str] = None, out_policy=None,
+         noise: Optional[torch.Tensor] = None) -> Any:
     """``x[..., K] @ w[K, N]`` through the policy-selected BFP backend.
 
     ``w``: float [K, N] or prequant ``{"m": [K, N], "s": [K//bk, N]}``.
     Leading dims of ``x`` are flattened for the 2-D backends and restored.
     ``x`` may be the activation wire format ``{"m": int8 [.., K], "s":
     [.., K//bk]}``; ``out_policy=`` (the CONSUMING layer's policy)
-    returns that format instead of dense float.
+    returns that format instead of dense float.  ``noise``: uniform noise
+    in [0, 1) with x's elements, for a STOCHASTIC policy (where ``repro``
+    takes ``key=``).
     """
     if isinstance(policy, _plan_cls()):
-        return policy.gemm(x, w, path=path, out_policy=out_policy)
+        return policy.gemm(x, w, path=path, out_policy=out_policy,
+                           noise=noise)
     return _gemm_exec(x, w, resolve_policy(policy, path), path=path,
-                      out_policy=out_policy)[0]
+                      out_policy=out_policy, noise=noise)[0]
 
 
 def conv2d(x: Any, w: Any, policy: PolicyLike = None, *,

@@ -48,6 +48,7 @@ class Site:
     kind: str                       #: "gemm" | "conv"
     policy: Optional[BFPPolicy]     #: resolved concrete policy (None=float)
     backend: BK.Backend             #: concrete execution, selected at bind
+    fallback: bool = False          #: backend != the policy's requested one
     prequantized: bool = False      #: weight leaf holds the wire format
     dx: Any = None                  #: backward plans: training slice
     dw: Any = None
@@ -71,6 +72,8 @@ class Plan:
         self.device = device
         #: per-plan forwards keyed by apply function (see jit_forward)
         self._fwd_cache: Dict[Any, Any] = {}
+        #: downgrades already warned on unbound paths of this plan
+        self._warned: set = set()
 
     def __repr__(self) -> str:
         n_bfp = sum(1 for s in self._sites.values() if s.policy is not None)
@@ -103,15 +106,17 @@ class Plan:
         return pol
 
     def gemm(self, x: Any, w: Any, *, path: Optional[str] = None,
-             out_policy=None) -> Any:
+             out_policy=None, noise=None) -> Any:
         site = self._sites.get(path)
         if site is not None and site.kind == "gemm":
             return _gemm_exec(x, w, site.policy, backend=site.backend,
-                              path=path, out_policy=out_policy)[0]
+                              path=path, out_policy=out_policy,
+                              noise=noise)[0]
         # unbound path: per-call resolution (strict kept)
         return _gemm_exec(x, w, resolve_policy(self.policy, path),
                           strict=self.strict, path=path,
-                          out_policy=out_policy)[0]
+                          out_policy=out_policy, warned=self._warned,
+                          noise=noise)[0]
 
     def conv2d(self, x: Any, w: Any, *, path: Optional[str] = None,
                stride: int = 1, padding: str = "SAME",
@@ -123,7 +128,7 @@ class Plan:
                               out_policy=out_policy)[0]
         return _conv_exec(x, w, resolve_policy(self.policy, path), stride,
                           padding, strict=self.strict, path=path,
-                          out_policy=out_policy)[0]
+                          out_policy=out_policy, warned=self._warned)[0]
 
     def jit_forward(self, apply_fn):
         """``apply_fn(plan.params, x, plan)`` as one callable, cached per
@@ -201,16 +206,16 @@ def bind(params: Any, policy: PolicyLike, *, tree: str = "auto",
         pre-quantized tree is fine — quantization is idempotent).
       policy: None / BFPPolicy / PolicyMap — resolved per site, once.
       tree: "cnn" or "auto"; LM trees arrive with the LM slice.
-      strict: refuse backend downgrades (raise) — also applied to
-        unbound-path dispatch at call time.  No downgrade target is
-        ported yet, so an unsupported site raises either way.
+      strict: refuse (raise) backend downgrades instead of the once-per-
+        site :class:`BackendFallbackWarning` and the emulated fallback —
+        also applied to unbound-path dispatch at call time.
       prequantize: convert eligible weight leaves to the wire format.
       device: where the plan's params live (default "cuda"; raises when
         CUDA is absent unless the caller passes "cpu").
 
-    Raises KeyError for policies naming unknown backends, and
-    :class:`BackendUnsupportedError` when a requested backend cannot
-    honour its policy at a site.
+    Raises KeyError for policies naming unknown backends, and (under
+    ``strict``) :class:`BackendUnsupportedError` when a requested backend
+    cannot honour its policy at a site.
     """
     dev = resolve_device(device)
     _validate_policy_backends(policy)
@@ -221,13 +226,18 @@ def bind(params: Any, policy: PolicyLike, *, tree: str = "auto",
     qparams = params_to(params, dev)
     if prequantize:
         qparams = quantize_cnn_param_tree(qparams, policy)
+    warned: set = set()   # fresh per bind: each plan reports its own
     sites: Dict[str, Site] = {}
     for path, skind, leaf in _discover_sites(qparams):
         if path in sites:
             continue
         pol = resolve_policy(policy, path)
-        be = (BK.get_backend("float") if pol is None else
-              BK.select_backend(pol, leaf, strict=strict, path=path))
-        sites[path] = Site(path, skind, pol, be,
+        if pol is None:
+            be, fb = BK.get_backend("float"), False
+        else:
+            be = BK.select_backend(pol, leaf, strict=strict, path=path,
+                                   warned=warned)
+            fb = be.name != pol.backend_name
+        sites[path] = Site(path, skind, pol, be, fb,
                            prequantized=is_prequant(leaf))
     return Plan(sites, qparams, policy, strict, device=dev)

@@ -8,11 +8,11 @@ count the launches that ran the fused requantize epilogue.
 """
 from typing import Dict
 
-from repro_torch.kernels import bfp_conv, bfp_matmul
+from repro_torch.kernels import bfp_conv, bfp_matmul, bfp_quantize
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
-_COUNTERS = (bfp_matmul.LAUNCHES, bfp_conv.LAUNCHES)
+_COUNTERS = (bfp_matmul.LAUNCHES, bfp_conv.LAUNCHES, bfp_quantize.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

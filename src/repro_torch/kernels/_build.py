@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 #: One shared library per source file.
-SOURCES = ("bfp_matmul", "bfp_conv")
+SOURCES = ("bfp_matmul", "bfp_conv", "bfp_quantize")
 
 # -fmad=false: every float multiply and add rounds on its own, as in the
 # JAX reference.  No --use_fast_math: it flushes subnormals, and a BFP

@@ -9,6 +9,10 @@ versions zero-pad K to a block multiple exactly as ``repro`` does.
 Model code reaches these through ``repro_torch.engine`` (backend
 "cuda", also registered as "pallas"), never directly.
 
+``bfp_quantize`` is the offline block-formatting entry point (a weight
+matrix to int8 mantissas + int32 exponents), padded exactly as
+``repro``'s wrapper pads it.
+
 ``x2d``/``x`` may be the activation wire format ``{"m", "s"}`` (int8
 mantissas + f32 steps per (row or pixel, K-chunk), a previous layer's
 epilogue output): the x-prequant kernels consume it as it is.
@@ -23,14 +27,17 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.policy import BFPPolicy
 from repro_torch.core.prequant import act_block, is_prequant, prequant_act
 from repro_torch.kernels import bfp_conv as KC
 from repro_torch.kernels import bfp_matmul as KM
+from repro_torch.kernels import bfp_quantize as KQ
+from repro_torch.tune.tables import aligned_tile
 
 __all__ = ["bfp_matmul", "bfp_matmul_prequant", "bfp_conv2d",
-           "bfp_conv2d_prequant"]
+           "bfp_conv2d_prequant", "bfp_quantize"]
 
 ActOrTensor = Union[torch.Tensor, dict]
 
@@ -165,3 +172,17 @@ def bfp_conv2d_prequant(x: ActOrTensor, wm_hwio: torch.Tensor,
         return _run(KC.bfp_conv2d_xwprequant, (x["m"], x["s"], wm_hwio, ws),
                     kw, out_policy, oc)
     return _run(KC.bfp_conv2d_prequant, (x, wm_hwio, ws), kw, out_policy, oc)
+
+
+def bfp_quantize(x: torch.Tensor, bits: int,
+                 block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[M, K] -> (int8 mantissas [M, K], int32 exponents
+    [M, ceil(K / block_k)]), one block per (row, K-tile).  Zero-pads to
+    (rows: a multiple of ``aligned_tile(M, 256)``, K: a ``block_k``
+    multiple) and slices back, as ``repro`` does; zeros never change a
+    block's amax."""
+    m_rows, k = x.shape
+    bm = aligned_tile(m_rows, 256)
+    xp = F.pad(x.float(), (0, (-k) % block_k, 0, (-m_rows) % bm))
+    m, e = KQ.bfp_quantize(xp, bits=bits, bk=block_k)
+    return m[:m_rows, :k], e[:m_rows, :-(-k // block_k)]

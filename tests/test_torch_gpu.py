@@ -15,10 +15,14 @@ from repro_torch import engine as EG
 from repro_torch import kernels as K
 from repro_torch.kernels import bfp_conv as KC
 from repro_torch.kernels import bfp_matmul as KM
+from repro_torch.kernels import bfp_quantize as KQ
+from repro_torch.kernels import ops
+from repro_torch.core.policy import PAPER_DEFAULT
 from repro_torch.models.cnn import MODELS, vgg
 from repro_torch.serve.cnn import CnnServeEngine
-from test_torch_util import (CONV_CASES, MM_CASES, conv_inputs,
-                             hazard_inputs, mm_inputs, normal, pq_k, t)
+from test_torch_util import (CONV_CASES, MM_CASES, Q_CASES, conv_inputs,
+                             hazard_inputs, mm_inputs, normal, pq_k,
+                             q_inputs, t)
 
 
 @pytest.fixture
@@ -222,3 +226,41 @@ def test_served_vgg16_on_the_card_equals_the_cpu(cuda, bk):
                                         for r in reqs])
     assert sum(K.launch_counts().values()) == 16 * eng.ncalls
     assert torch.equal(logits["cpu"], logits["cuda"])
+
+
+@pytest.mark.gpu
+def test_cuda_bfp_quantize_matches_plain_version(cuda):
+    """The block-formatting kernel on ragged M and K, bk 8..512, bits
+    4..12 (int8 saturation above 8), zero/inf/NaN blocks and half-way
+    mantissas: ``torch.equal`` to its plain version on the card and on
+    the CPU, through the kernel wrapper (ragged edge in the kernel) and
+    through ``ops`` (padded as repro pads)."""
+    before = K.launch_counts()["bfp_quantize"]
+    for case in Q_CASES:
+        _, _, bk, bits = case
+        x = t(q_inputs(case))
+        want = KQ.bfp_quantize_plain(x, bits, bk)
+        for got in (KQ.bfp_quantize(x.to(cuda), bits=bits, bk=bk),
+                    ops.bfp_quantize(x.to(cuda), bits, bk)):
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), case
+        plain_card = KQ.bfp_quantize_plain(x.to(cuda), bits, bk)
+        for g, w in zip(plain_card, want):
+            assert torch.equal(g.cpu(), w), case
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bfp_quantize"] == before + 2 * len(Q_CASES)
+
+
+@pytest.mark.gpu
+def test_cuda_emulated_datapath_equals_the_cpu(cuda):
+    """The emulated backend (float64 products of integer mantissas) on
+    the card: LeNet under the paper's policy, bit-equal to the CPU."""
+    params = MODELS["lenet"].init(torch.Generator().manual_seed(0),
+                                  device="cpu")
+    x = t(normal((4, 28, 28, 1), seed=3))
+    want = MODELS["lenet"].apply(
+        EG.bind(params, PAPER_DEFAULT, device="cpu").params, x,
+        PAPER_DEFAULT)
+    plan = EG.bind(params, PAPER_DEFAULT, device=cuda)
+    got = plan.jit_forward(MODELS["lenet"].apply)(x.to(cuda))
+    assert torch.equal(got.cpu(), want)

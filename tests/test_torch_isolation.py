@@ -12,7 +12,7 @@ import torch
 from repro_torch import engine as EG
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.policy import PALLAS_TILED
-from repro_torch.models.cnn import MODELS, layers, vgg
+from repro_torch.models.cnn import MODELS, googlenet, layers, resnet, small, vgg
 from repro_torch.serve.cnn import CnnServeEngine
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -45,8 +45,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        MODELS["vgg16"].init(gen)
+    for name in MODELS:              # every registered model's init
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            MODELS[name].init(gen)
+    for init in (resnet.init, googlenet.init, small.lenet_init,
+                 small.cifarnet_init):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init(gen)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         vgg.init(gen, input_hw=32, width_mult=0.125, fc_dim=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):

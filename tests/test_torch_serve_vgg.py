@@ -13,6 +13,8 @@ would take XLA most of a minute to compile.  The port binds
 ``PALLAS_TILED`` with weights prequantized, so the parity also pins
 prequant execution to inline quantization.
 """
+import warnings
+
 import jax
 import numpy as np
 import pytest
@@ -131,13 +133,25 @@ def test_registry_spec_and_reduced_init_shapes(jax_params):
 
 
 def test_bind_refuses_policies_the_kernels_cannot_run():
+    """A strict bind refuses a policy the kernels cannot run; a
+    non-strict one warns once per site and runs it on "emulated", as
+    ``repro`` does.  ``PAPER_DEFAULT`` names "emulated" itself: no
+    warning."""
     params = MODELS["vgg16"].init(torch.Generator().manual_seed(0),
                                   device="cpu")
+    truncating = PALLAS_TILED.with_(rounding=Rounding.TRUNCATE)
     with pytest.raises(EG.BackendUnsupportedError, match="emulated"):
-        EG.bind(params, PALLAS_TILED.with_(rounding=Rounding.TRUNCATE),
-                device="cpu")
-    with pytest.raises(KeyError, match="unknown BFP backend 'emulated'"):
-        EG.bind(params, PAPER_DEFAULT, device="cpu")
+        EG.bind(params, truncating, strict=True, device="cpu")
+    with pytest.warns(EG.BackendFallbackWarning) as rec:
+        plan = EG.bind(params, truncating, device="cpu")
+    assert len(rec) == len(plan.sites) == 16
+    assert all(s.backend.name == "emulated" and s.fallback
+               for s in plan.sites.values())
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        plan = EG.bind(params, PAPER_DEFAULT, device="cpu")
+    assert all(s.backend.name == "emulated" and not s.fallback
+               for s in plan.sites.values())
     with pytest.raises(ValueError, match="LM"):
         EG.bind({"embed": {}}, None, device="cpu")
 

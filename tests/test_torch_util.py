@@ -22,9 +22,12 @@ def normal(shape, seed: int = 0, scale: float = 1.0) -> np.ndarray:
 
 
 def to_numpy_tree(tree):
-    """A JAX pytree with numpy leaves (prequant dicts stay dicts)."""
+    """A JAX pytree with numpy leaves (prequant dicts stay dicts); Python
+    scalars (a model's ``meta`` ints, GoogLeNet's ``fc1_in``) stay as they
+    are."""
     import jax     # here, so the card-only tests import this file without JAX
-    return jax.tree_util.tree_map(np.asarray, tree)
+    return jax.tree_util.tree_map(
+        lambda a: a if isinstance(a, (int, float)) else np.asarray(a), tree)
 
 
 def t(a: np.ndarray) -> torch.Tensor:
@@ -74,6 +77,32 @@ def conv_inputs(case):
     x = normal((2, 9, 10, c), seed=kk * c + s)
     x[1, :, :, :] = 0.0                           # an all-zero image
     return x, normal((kk, kk, c, 6), seed=c, scale=0.2)
+
+
+# (M, K, bk, bits): ragged K, ragged M past the 256-row tile, a 512
+# block, K one past a block, bits above 8 (int8 saturation), tiny blocks
+Q_CASES = [(5, 200, 32, 8), (300, 64, 32, 4), (5, 1024, 512, 8),
+           (7, 129, 128, 8), (6, 96, 32, 9), (6, 96, 32, 10),
+           (6, 96, 32, 12), (6, 40, 8, 8), (9, 384, 128, 6)]
+
+
+def q_inputs(case):
+    """Rows: a zero first block, a NaN, an inf, an all -inf block, a
+    x1000 row and exact half-way mantissas, where the shape has them."""
+    m, k, bk, bits = case
+    x = normal((m, k), seed=m * k + bits)
+    x[0, :bk] = 0.0
+    x[1, min(3, k - 1)] = np.nan
+    x[2, k - 1] = np.inf
+    x[3, :min(bk, k)] = -np.inf
+    x[4] *= 1000.0
+    if m > 5:                      # amax 1.0, so the step is 2^-(bits-2)
+        step = np.float32(2.0 ** -(bits - 2))
+        x[5, :] = 0.0
+        x[5, 0::bk] = 1.0
+        x[5, 1::4] = step * np.float32(2.5)
+        x[5, 2::4] = step * np.float32(-3.5)
+    return x
 
 
 def pq_k(k, bk):
