@@ -7,20 +7,27 @@ them, and without the repository around it.  Phases, each of which
 raises (and so exits non-zero) when it fails:
 
 1. the card's name and power limit (nvidia-smi); TF32 off;
-2. build the three CUDA kernel sources for sm_90a, in parallel;
+2. build the three CUDA kernel sources for sm_90a, in parallel
+   (``bfp_conv.cu`` holds both conv cores: the tile kernel and the int8
+   ``mma.sync`` core with its activation format pass), and print each
+   kernel's ptxas registers, shared memory and spills;
 3. each kernel against its plain PyTorch version on the card, bit-equal
-   (``torch.equal``), at full-width VGG16 shapes at batch 8;
+   (``torch.equal``), at full-width VGG16 shapes at batch 8, and the
+   int8 mma core (the weight-prequant convs) with its activation format
+   pass at ResNet-50 stage-4 and VGG16 conv5 shapes and at a ragged M;
 4. the main path: full-width VGG16 (224x224x3, 1000 classes, seeded
    random weights) bound with ``PALLAS_TILED`` (strict, prequantized) and
    served through ``CnnServeEngine`` — 16 requests, no failures, no float
-   retries, 3 inline-conv / 10 prequant-conv / 3 prequant-matmul
-   launches per forward, logits bit-equal to a direct ``apply`` and to a
-   forward through a backend made of the plain versions.  The reduced
+   retries, 3 inline-conv / 10 prequant-conv (each one format pass and
+   one mma-core launch) / 3 prequant-matmul launches per forward,
+   logits bit-equal to a direct ``apply`` and to a forward through a
+   backend made of the plain versions.  The reduced
    VGG16 of the model registry is served the same way: its FC layers
    (K = 64) take the inline-weight matmul kernel;
 5. CUDA-event times of each kernel and its plain version at the phase-3
    shapes and at every layer of one batch-8 forward of each path (each
-   layer also checked bit-equal to its plain version, with its bound),
+   layer also checked bit-equal to its plain version, with its bound and
+   the core it ran on, and a prequant conv's format pass timed alone),
    served req/s, and one more served run under ``torch.profiler``
    (device-busy share, host time by op; trace in
    ``chiprun_out/serve_trace.json``);
@@ -37,7 +44,8 @@ raises (and so exits non-zero) when it fails:
    ``prequant_act`` of the layer's f32 output, and each chain's end to
    the float-activation chain.  Then each layer is timed (CUDA events)
    as it runs in the chain, through the plain versions, and with f32 in
-   and out, beside its bound;
+   and out, beside its bound and the core it ran on; then the sum over
+   each chain's epilogue layers;
 7. the block-formatting kernel (``bfp_quantize``) against its plain
    version at ragged M and K, blocks 32/128/512, L 4/8, with zero, inf
    and NaN blocks; then the path ``resnet50_format``: full-width
@@ -52,7 +60,11 @@ raises (and so exits non-zero) when it fails:
    ``MODEL_LAUNCHES`` predicts, logits — GoogLeNet's head 0 — bit-equal
    to a direct apply and to the plain-version forward), each with its
    CUDA-event forward time and served req/s, and ResNet-50 layer by
-   layer at its own inputs (kernel, plain, bound);
+   layer at its own inputs (kernel, plain, bound, core) with its sums by
+   stage, and a yardstick for the int dot alone: ``torch._int_mm`` on
+   the im2col'd int8 operands of a stage-4 3x3 conv (not the same
+   function: no block steps, no tile-ordered f32 sum; the port never
+   calls it);
 9. the paper's policy (``PAPER_DEFAULT``: EQ4, L=8) requested on the
    kernel backend, bound non-strict for VGG16 and ResNet-18: one
    ``BackendFallbackWarning`` per site, every site on "emulated", no
@@ -65,7 +77,9 @@ raises (and so exits non-zero) when it fails:
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
    layers that run it, per batch-8 forward (per chain run for the
    wire-format kernels, per formatting of ResNet-50 for
-   ``bfp_quantize``).
+   ``bfp_quantize``).  ``bfp_conv2d_prequant``'s ms is its wrapper's:
+   the format pass and the core; ``bfp_conv2d_xformat``'s row is the
+   format pass alone.
 """
 from __future__ import annotations
 
@@ -93,6 +107,7 @@ SOURCES = {"bfp_matmul": _MM_CU, "bfp_matmul_prequant": _MM_CU,
            "bfp_matmul_xprequant": _MM_CU, "bfp_matmul_xwprequant": _MM_CU,
            "bfp_conv2d": _CONV_CU, "bfp_conv2d_prequant": _CONV_CU,
            "bfp_conv2d_xprequant": _CONV_CU, "bfp_conv2d_xwprequant": _CONV_CU,
+           "bfp_conv2d_xformat": _CONV_CU,
            "bfp_quantize": "src/repro_torch/kernels/csrc/bfp_quantize.cu"}
 REPLACES = {"bfp_matmul": "src/repro/kernels/bfp_matmul.py:362",
             "bfp_matmul_prequant": "src/repro/kernels/bfp_matmul.py:388",
@@ -102,6 +117,9 @@ REPLACES = {"bfp_matmul": "src/repro/kernels/bfp_matmul.py:362",
             "bfp_conv2d_prequant": "src/repro/kernels/bfp_conv.py:304",
             "bfp_conv2d_xprequant": "src/repro/kernels/bfp_conv.py:332",
             "bfp_conv2d_xwprequant": "src/repro/kernels/bfp_conv.py:363",
+            # the x quantization inside _make_conv_kernel, which the
+            # prequant conv now does once per pixel chunk
+            "bfp_conv2d_xformat": "src/repro/kernels/bfp_conv.py:94",
             "bfp_quantize": "src/repro/kernels/bfp_quantize.py:38"}
 #: counters of the wire-format kernels and of the fused epilogue, which
 #: no served path launches (phase 4 expects them at 0)
@@ -128,13 +146,15 @@ CHAIN_STAGES = (("conv2_1", "conv2_2"), ("conv3_1", "conv3_2", "conv3_3"),
 #: 1200 neither), 3b/b5 (800), 4b/b3 (1008), 4b/b5 and 4c/b5 (600),
 #: 4d/b3 (1296), 4d/b5 (800) and loss2/conv (528): 40; prequant the other
 #: 19; the five GEMMs (fc, loss1|2/fc1|fc2: K 1024 or 2048) prequant.
+#: Every prequant conv (block 128 | C, OC a multiple of 4, f32 out) runs
+#: the int8 mma core after one activation format pass.
 MODEL_LAUNCHES = {
     "resnet50_full": {"bfp_conv2d": 9, "bfp_conv2d_prequant": 44,
-                      "bfp_matmul_prequant": 1},
+                      "bfp_conv2d_xformat": 44, "bfp_matmul_prequant": 1},
     "resnet18_full": {"bfp_conv2d": 7, "bfp_conv2d_prequant": 13,
-                      "bfp_matmul_prequant": 1},
+                      "bfp_conv2d_xformat": 13, "bfp_matmul_prequant": 1},
     "googlenet_full": {"bfp_conv2d": 40, "bfp_conv2d_prequant": 19,
-                       "bfp_matmul_prequant": 5}}
+                       "bfp_conv2d_xformat": 19, "bfp_matmul_prequant": 5}}
 #: offline formatting of ResNet-50: one launch per prequantized weight
 FORMAT_LAUNCHES = {"bfp_quantize": 45}
 #: (M, K, bk, bits) of the phase-7 checks: ragged M and K, blocks 32, 128
@@ -185,8 +205,11 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def _parts(v):
-    """A tensor, or the tensors of a wire-format {"m", "s"} dict."""
-    return tuple(v.values()) if isinstance(v, dict) else (v,)
+    """A tensor, or the tensors of a wire-format {"m", "s"} dict or of an
+    (int8, steps) pair."""
+    if isinstance(v, dict):
+        return tuple(v.values())
+    return tuple(v) if isinstance(v, tuple) else (v,)
 
 
 def bound(x, w_parts, out, m, n, k):
@@ -243,7 +266,8 @@ def main() -> int:
     from repro_torch import engine as EG
     from repro_torch import kernels as K
     from repro_torch.core.bfp import pow2
-    from repro_torch.core.conv_utils import conv_weight_matrix
+    from repro_torch.core.conv_utils import (conv_geometry,
+                                             conv_weight_matrix, im2col)
     from repro_torch.core.policy import PALLAS_TILED, PAPER_DEFAULT
     from repro_torch.core.prequant import (act_block, dequantize_act,
                                            is_prequant, prequant_act,
@@ -272,9 +296,12 @@ def main() -> int:
     print(f"build: {json.dumps(times)} wall {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name in _build.SOURCES:
+        entry = None
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.strip()}")
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
@@ -290,15 +317,16 @@ def main() -> int:
     # K); path is the served path that runs the shape, or "off_path"
     cases = []
 
-    def conv_case(label, path, x, w, stride, prequant):
+    def conv_case(label, path, x, w, stride, prequant, padding="SAME"):
         kh, kw, c, oc = w.shape
         if prequant:
             d = prequant_conv_leaf(w, pol)
             parts = (d["m"], d["s"])
             call = lambda: KC.bfp_conv2d_prequant(  # noqa: E731
-                x, d["m"], d["s"], l_i=8, l_w=8, bk=bk, stride=stride)
+                x, d["m"], d["s"], l_i=8, l_w=8, bk=bk, stride=stride,
+                padding=padding)
             plain = lambda: KC.bfp_conv2d_prequant_plain(  # noqa: E731
-                x, d["m"], d["s"], 8, 8, bk, stride)
+                x, d["m"], d["s"], 8, 8, bk, stride, padding)
         else:
             parts = (w,)
             call = lambda: KC.bfp_conv2d(  # noqa: E731
@@ -306,9 +334,15 @@ def main() -> int:
             plain = lambda: KC.bfp_conv2d_plain(x, w, 8, 8, bk,  # noqa: E731
                                                 stride)
         name = "bfp_conv2d_prequant" if prequant else "bfp_conv2d"
-        oh, ow = -(-x.shape[1] // stride), -(-x.shape[2] // stride)
+        oh, ow, _, _ = conv_geometry(x.shape[1], x.shape[2], kh, kw, stride,
+                                     padding)
         cases.append((label, path, name, call, plain, x, parts,
                       x.shape[0] * oh * ow, oc, kh * kw * c))
+        if prequant:        # its format pass, alone
+            cases.append((label, path, "bfp_conv2d_xformat",
+                          lambda: KC.bfp_conv2d_xformat(x, l_i=8, bk=bk),
+                          lambda: KC.bfp_conv2d_xformat_plain(x, 8, bk), x,
+                          (), x.numel() // bk, bk, 0))
 
     def mm_case(label, path, x, w, prequant):
         if prequant:
@@ -338,6 +372,22 @@ def main() -> int:
               rnd(3, 3, 512, 512, scale=0.02), 1, True)
     conv_case("stem7x7s2", "off_path", rnd(b, 224, 224, 3),
               rnd(7, 7, 3, 64, scale=0.12), 2, False)
+    # the mma core at ResNet-50 stage-4 shapes (3x3 and the stride-2
+    # projection into the stage), and at a ragged M (3 images of 7x7 at
+    # stride 2 VALID: 27 rows) with hazard chunks (zero, NaN, inf,
+    # subnormal amax)
+    conv_case("r50_s4_3x3", "resnet50_full", rnd(b, 7, 7, 512, relu=True),
+              rnd(3, 3, 512, 512, scale=0.02), 1, True)
+    conv_case("r50_s4_proj", "resnet50_full",
+              rnd(b, 14, 14, 1024, relu=True),
+              rnd(1, 1, 1024, 2048, scale=0.03), 2, True)
+    xh = rnd(3, 7, 7, 256)
+    xh[0, 0, 0, :bk] = 0.0
+    xh[0, 1, 1, 5] = float("nan")
+    xh[1, 2, 3, 7] = float("inf")
+    xh[2, 6, 6, :bk] = 1e-40
+    conv_case("ragged_M27", "off_path", xh, rnd(3, 3, 256, 40, scale=0.03),
+              2, True, "VALID")
     mm_case("fc6", full_p, rnd(b, 25088, relu=True),
             rnd(25088, 4096, scale=0.009), True)
     mm_case("fc8", full_p, rnd(b, 4096, relu=True),
@@ -347,14 +397,32 @@ def main() -> int:
     mm_case("fc7_inline", "off_path", rnd(b, 4096, relu=True),
             rnd(4096, 4096, scale=0.02), False)
 
+    def nan_bits(a):    # NaN-aware bit patterns (hazard inputs make NaN)
+        a = a if isinstance(a, tuple) else (a,)
+        return [torch.where(v.isnan(), torch.full_like(v, float("nan")),
+                            v).view(torch.int32) if v.is_floating_point()
+                else v for v in a]
+
+    def diff(a, b):
+        a, b = (a if isinstance(a, tuple) else (a,),
+                b if isinstance(b, tuple) else (b,))
+        return max(((u.float() - v.float()).abs().nan_to_num(0.0).max().item()
+                    for u, v in zip(a, b)), default=0.0)
+
     errs = {}
-    for label, path, name, call, plain, *_ in cases:
+    for label, path, name, call, plain, x, *_ in cases:
         got, want = call(), plain()
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        equal = torch.equal(got, want)
-        print(f"check {label:<11} {path:<13} {name:<20} {tuple(got.shape)} "
-              f"torch.equal={equal} max_abs_diff={err}", flush=True)
+        err = diff(got, want)
+        equal = all(torch.equal(u, v) for u, v in zip(nan_bits(got),
+                                                      nan_bits(want)))
+        shape = tuple((got[0] if isinstance(got, tuple) else got).shape)
+        core = ""
+        if name.startswith("bfp_conv2d") and name != "bfp_conv2d_xformat":
+            core = " core=" + KC.conv_core(False, name.endswith("prequant"),
+                                           bk, x.shape[3], shape[3], 8)
+        print(f"check {label:<11} {path:<13} {name:<20} {shape} "
+              f"torch.equal={equal} max_abs_diff={err}{core}", flush=True)
         check(equal, f"{name} differs from its plain version at {label}")
         errs[name] = max(errs.get(name, 0.0), err)
 
@@ -456,12 +524,14 @@ def main() -> int:
     plan, eng, images, launches[full_p] = serve(
         full_p, full_params, 224,
         {"bfp_conv2d": 3, "bfp_conv2d_prequant": 10,
-         "bfp_matmul_prequant": 3, "bfp_matmul": 0,
+         "bfp_conv2d_xformat": 10, "bfp_matmul_prequant": 3,
+         "bfp_matmul": 0,
          **dict.fromkeys(WIRE_COUNTERS, 0)})
     red_plan, _, red_images, launches[red_p] = serve(
         red_p, MODELS["vgg16"].init(gen, reduced=True, device=dev), 32,
         {"bfp_conv2d": 13, "bfp_conv2d_prequant": 0,
-         "bfp_matmul_prequant": 0, "bfp_matmul": 3,
+         "bfp_conv2d_xformat": 0, "bfp_matmul_prequant": 0,
+         "bfp_matmul": 3,
          **dict.fromkeys(WIRE_COUNTERS, 0)})
 
     # -- 5. timing ---------------------------------------------------------
@@ -492,10 +562,11 @@ def main() -> int:
             self.calls = []
 
         def conv2d(self, x, w, *, path=None, stride=1, padding="SAME",
-                   out_policy=None):
+                   out_policy=None, noise=None):
             self.calls.append((path, "conv", x, w, stride, padding))
             return super().conv2d(x, w, path=path, stride=stride,
-                                  padding=padding, out_policy=out_policy)
+                                  padding=padding, out_policy=out_policy,
+                                  noise=noise)
 
         def gemm(self, x, w, *, path=None, out_policy=None, noise=None):
             self.calls.append((path, "gemm", x, w, 1, None))
@@ -531,21 +602,48 @@ def main() -> int:
                                   (out - ref).abs().max().item())
                 parts = (w["m"], w["s"]) if is_prequant(w) else (w,)
                 bms, by = bound(x, parts, out, out.numel() // n, n, k)
-                rows[path] = {"kernel": kname, "shape": [out.numel() // n,
-                                                         n, k],
+                core = (KC.conv_core(is_prequant(x), is_prequant(w),
+                                     k // w["s"].shape[0] if is_prequant(w)
+                                     else pol.block_k, c, n, pol.l_i)
+                        if op == "conv" else "tile")
+                rows[path] = {"kernel": kname, "core": core,
+                              "shape": [out.numel() // n, n, k],
                               "ms": cuda_ms(call, reps=5),
                               "plain_ms": cuda_ms(plain, reps=2),
                               "bound_ms": bms, "bound_by": by}
+                if core == "mma" and not is_prequant(x):
+                    # the format pass inside that call, alone: x f32 in,
+                    # int8 mantissas and f32 steps out
+                    fbk = k // w["s"].shape[0]
+                    fmt = lambda: KC.bfp_conv2d_xformat(  # noqa: E731
+                        x, l_i=pol.l_i, bk=fbk)
+                    fplain = lambda: KC.bfp_conv2d_xformat_plain(  # noqa
+                        x, pol.l_i, fbk)
+                    check(all(torch.equal(u, v) for u, v in zip(
+                        nan_bits(fmt()), nan_bits(fplain()))),
+                        f"{label} {path}: format pass != plain")
+                    fb, fby = bound(x, (), fmt(), x.numel() // fbk, fbk, 0)
+                    rows[path + "/xformat"] = {
+                        "kernel": "bfp_conv2d_xformat", "core": "mma",
+                        "shape": [x.numel() // fbk, fbk, 0],
+                        "ms": cuda_ms(fmt, reps=5),
+                        "plain_ms": cuda_ms(fplain, reps=2),
+                        "bound_ms": fb, "bound_by": fby}
         for path, row in rows.items():
             print(f"time layer {label:<13} {path:<12} {row['kernel']:<20} "
-                  f"M,N,K={row['shape']} kernel {row['ms']:.4f} ms  plain "
+                  f"core={row['core']:<4} M,N,K={row['shape']} kernel "
+                  f"{row['ms']:.4f} ms  plain "
                   f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']})  [{card}]")
-        print(f"time {label}: {len(rows)} layers, kernel "
-              f"{sum(r['ms'] for r in rows.values()):.4f} ms, plain "
-              f"{sum(r['plain_ms'] for r in rows.values()):.4f} ms, bound "
-              f"{sum(r['bound_ms'] for r in rows.values()):.4f} ms  [{card}]",
-              flush=True)
+        layer_rows = [r for r in rows.values()
+                      if r["kernel"] != "bfp_conv2d_xformat"]
+        fmt_ms = sum(r["ms"] for r in rows.values()
+                     if r["kernel"] == "bfp_conv2d_xformat")
+        print(f"time {label}: {len(layer_rows)} layers, kernel "
+              f"{sum(r['ms'] for r in layer_rows):.4f} ms, plain "
+              f"{sum(r['plain_ms'] for r in layer_rows):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in layer_rows):.4f} ms (format "
+              f"passes inside them: {fmt_ms:.4f} ms)  [{card}]", flush=True)
 
     time_layers(full_p, plan, vgg.apply, images)
     time_layers(red_p, red_plan, vgg.apply, red_images)
@@ -707,8 +805,13 @@ def main() -> int:
                         m, k = xf.shape[0] * xf.shape[1] * xf.shape[2], \
                             kh * kw * c
                     bms, by = bound(x, parts, y, m, n, k)
+                    core = "tile" if fc else KC.conv_core(
+                        is_prequant(x), is_prequant(w),
+                        k // w["s"].shape[0] if is_prequant(w)
+                        else pol.block_k, c, n, pol.l_i,
+                        opol.l_i if opol is not None else None)
                     row = rows[name] = {
-                        "kernel": kernel_of(kplan, name, x),
+                        "kernel": kernel_of(kplan, name, x), "core": core,
                         "epilogue": opol is not None, "shape": [m, n, k],
                         "ms": cuda_ms(lambda: fn(x, w, path=name,
                                                  out_policy=opol), reps=5),
@@ -720,13 +823,18 @@ def main() -> int:
                         "bound_ms": bms, "bound_by": by,
                         "f32_bound_ms": bound(xf, parts, yf, m, n, k)[0]}
                     print(f"time chain {label} {name:<8} {row['kernel']:<22} "
-                          f"epilogue={row['epilogue']!s:<5} "
+                          f"core={core:<4} epilogue={row['epilogue']!s:<5} "
                           f"M,N,K={row['shape']} "
                           f"kernel {row['ms']:.4f} ms  plain "
                           f"{row['plain_ms']:.4f} ms  f32 handoff "
                           f"{row['f32_ms']:.4f} ms  bound {bms:.4f} ms ({by}),"
                           f" f32 bound {row['f32_bound_ms']:.4f} ms  [{card}]",
                           flush=True)
+            epi = [r for r in rows.values() if r["epilogue"]]
+            print(f"time chain {label}: {len(epi)} layers run the fused "
+                  f"epilogue, kernel {sum(r['ms'] for r in epi):.4f} ms, "
+                  f"bound {sum(r['bound_ms'] for r in epi):.4f} ms (int8 "
+                  f"mantissas and steps out)  [{card}]", flush=True)
 
     # -- 7. bfp_quantize: the offline block formatting -----------------------
     def q_input(m, k, bk):
@@ -842,6 +950,84 @@ def main() -> int:
     # ResNet-50 layer by layer, each at its own input from one forward
     r50 = models["resnet50_full"]
     time_layers("resnet50_full", r50["plan"], r50["apply"], r50["images"])
+    # ... and by stage (blocks/<i> of stage s: cumulative depths)
+    ends = np.cumsum(r50["params"]["meta"][1])
+    stages = detail["resnet50_full"]["stages"] = {}
+    for path, row in detail["layers"]["resnet50_full"].items():
+        if row["kernel"] == "bfp_conv2d_xformat":
+            continue
+        name = path.split("/")[0]
+        if name == "blocks":
+            name = "stage%d" % (1 + int(np.searchsorted(
+                ends, int(path.split("/")[1]), side="right")))
+        st = stages.setdefault(name, {"layers": 0, "mma": 0, "ms": 0.0,
+                                      "plain_ms": 0.0, "bound_ms": 0.0})
+        st["layers"] += 1
+        st["mma"] += row["core"] == "mma"
+        for key in ("ms", "plain_ms", "bound_ms"):
+            st[key] += row[key]
+    for name, st in stages.items():
+        print(f"time stage resnet50_full {name:<6} {st['layers']} layers "
+              f"({st['mma']} on the mma core) kernel {st['ms']:.4f} ms  "
+              f"plain {st['plain_ms']:.4f} ms  bound {st['bound_ms']:.4f} ms"
+              f"  [{card}]", flush=True)
+
+    # one batch-8 forward under the profiler: device time by kernel
+    # family and the device-busy share of the wall time (the rest is the
+    # host: dispatch, wrappers, BN/add/ReLU launches)
+    fwd50 = r50["plan"].jit_forward(r50["apply"])
+    xb50 = r50["images"][:8].to(dev)
+    fwd50(xb50)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fwd50(xb50)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 3
+    fam = {"mma core": 0.0, "format pass": 0.0, "tile kernel": 0.0,
+           "other": 0.0}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        key = ("mma core" if "conv_mma_kernel" in e.key else
+               "format pass" if "xformat_kernel" in e.key else
+               "tile kernel" if "bfp_tile_kernel" in e.key else "other")
+        fam[key] += e.self_device_time_total / 1e3 / 3
+    devt = sum(fam.values())
+    detail["resnet50_full"]["profile"] = {"wall_ms": wall,
+                                          "device_ms": devt, **fam}
+    print(f"profile resnet50_full forward batch 8: wall {wall:.4f} ms, "
+          f"device {devt:.4f} ms (busy {100 * devt / wall:.1f}%); device "
+          f"ms by kernel: "
+          f"{json.dumps({k: round(v, 4) for k, v in fam.items()})}  "
+          f"[{card}]", flush=True)
+
+    # A yardstick for the int dot alone, NOT the same function (no block
+    # steps, no tile-ordered f32 sum) and never called by the port:
+    # torch._int_mm on the im2col'd int8 operands of a stage-4 3x3 conv
+    # (M, N, K = 392, 512, 4608), beside the mma core on the same
+    # mantissas with their steps.
+    x4 = rnd(8, 7, 7, 512, relu=True)
+    d4 = prequant_conv_leaf(rnd(3, 3, 512, 512, scale=0.02), pol)
+    xm4, xs4 = KC.bfp_conv2d_xformat(x4, l_i=8, bk=bk)
+    a8 = im2col(xm4.float(), 3, 3, 1, "SAME")[0].to(torch.int8)
+    b8 = conv_weight_matrix(d4["m"]).contiguous()
+    got8 = torch._int_mm(a8, b8)
+    check(torch.equal(got8.double(), a8.double() @ b8.double()),
+          "torch._int_mm yardstick: wrong int dot")
+    ym = {"shape": [392, 512, 4608],
+          "int_mm_ms": cuda_ms(lambda: torch._int_mm(a8, b8), reps=20),
+          "core_ms": cuda_ms(lambda: KC.bfp_conv2d_xwprequant(
+              xm4, xs4, d4["m"], d4["s"], l_i=8, l_w=8, bk=bk), reps=20),
+          "int8_ops_bound_ms": 2.0 * 392 * 512 * 4608 / INT8_OPS_PER_S
+          * 1e3}
+    detail["yardstick_int_mm"] = ym
+    print(f"yardstick stage-4 3x3 M,N,K=392,512,4608: torch._int_mm "
+          f"{ym['int_mm_ms']:.4f} ms (int dot only, not the same function,"
+          f" never called by the port), mma core on the same mantissas "
+          f"{ym['core_ms']:.4f} ms, int8 operations bound "
+          f"{ym['int8_ops_bound_ms']:.4f} ms  [{card}]", flush=True)
 
     # -- 9. the paper's policy (EQ4, L=8) on the emulated datapath ----------
     # requested on the kernel backend, non-strict: every site warns once

@@ -23,6 +23,14 @@ float output in a second step (``prequant_act``).  An ``x`` already in
 that format goes straight to an ``act_prequant`` backend, and is
 dequantized first for every other route (bit-identical by quantization
 idempotence).
+
+Gradients.  The kernel backend ("cuda", alias "pallas") has no backward
+yet: its plain version's round has zero derivative and the CUDA launch
+writes fresh outputs, so a float operand that requires grad would get a
+silent zero gradient.  Such a call raises
+:class:`~repro_torch.engine.backends.BackendUnsupportedError` instead
+(``repro`` routes it through ``repro.grad``'s custom VJP, not ported
+yet).  The emulated backend's straight-through gradients are unchanged.
 """
 from __future__ import annotations
 
@@ -54,6 +62,26 @@ def _check_out_policy(out_policy) -> None:
     if out_policy.rounding is not Rounding.ROUND:
         raise ValueError("out_policy requantization is round-to-nearest "
                          f"only; got {out_policy.rounding}")
+
+
+#: backends with no backward: an operand requiring grad is refused there
+_NO_BACKWARD = ("cuda", "pallas")
+
+
+def _refuse_grad(be: BK.Backend, *operands: Any) -> None:
+    """Raise where autograd would see a kernel-backend call as constant:
+    grad mode on and a float tensor operand that requires grad."""
+    if be.name not in _NO_BACKWARD or not torch.is_grad_enabled():
+        return
+    if any(isinstance(a, torch.Tensor) and a.is_floating_point()
+           and a.requires_grad for a in operands):
+        raise BK.BackendUnsupportedError(
+            f"backend {be.name!r} has no backward: an operand that "
+            f"requires grad would get a zero gradient.  Autodiff through "
+            f"the kernels is ROADMAP Queue 1 item 4 (the port of "
+            f"repro.grad); until then run under torch.no_grad() or "
+            f"inference_mode, or use backend 'emulated' for "
+            f"straight-through gradients")
 
 
 def _act_ok(be: BK.Backend, pol, w_block: Optional[int], x: dict) -> bool:
@@ -115,6 +143,7 @@ def _gemm_exec(x: Any, w: Any, pol, backend: Optional[BK.Backend] = None,
         be = (BK.get_backend("float") if pol is None
               else BK.select_backend(pol, w, strict=strict, path=path,
                                      warned=warned))
+    _refuse_grad(be, x, w)
     if x_pq and not _act_ok_gemm(be, pol, w, x2d):
         x2d = dequantize_act(x2d)
     kw = {} if noise is None else {"noise": noise}
@@ -130,14 +159,17 @@ def _gemm_exec(x: Any, w: Any, pol, backend: Optional[BK.Backend] = None,
 def _conv_exec(x: Any, w: Any, pol, stride: int, padding: str,
                backend: Optional[BK.Backend] = None, strict: bool = False,
                path: Optional[str] = None, out_policy=None,
-               warned=None) -> Tuple[Any, BK.Backend]:
+               warned=None,
+               noise: Optional[torch.Tensor] = None) -> Tuple[Any, BK.Backend]:
     """Fused conv when the backend has one and can honour (policy,
     geometry); honest materialized-im2col + matmul fallback otherwise
     (the emulated backend, and any policy the kernels cannot run, take
     that route).  With ``backend=None`` the conv slot of the REQUESTED
     backend is consulted (policy None: the registered "float" backend)
     and the im2col GEMM selects with support checks, falling back to
-    emulated with a warning unless ``strict``."""
+    emulated with a warning unless ``strict``.  ``noise`` reaches only
+    the im2col GEMM, as ``repro``'s ``key``: the fused convs round to
+    nearest."""
     if out_policy is not None:
         _check_out_policy(out_policy)
     be = backend
@@ -147,6 +179,7 @@ def _conv_exec(x: Any, w: Any, pol, stride: int, padding: str,
     if is_prequant(x) and not (fused and _act_ok_conv(be, pol, w, x)):
         x = dequantize_act(x)
     if fused:
+        _refuse_grad(be, x, w)
         if out_policy is not None and be.out_quant and pol is not None:
             return be.conv(x, w, pol, stride, padding,
                            out_policy=out_policy), be
@@ -156,12 +189,12 @@ def _conv_exec(x: Any, w: Any, pol, stride: int, padding: str,
         return out, be
     return _conv_im2col_exec(x, w, pol, stride, padding, backend=backend,
                              strict=strict, path=path, out_policy=out_policy,
-                             warned=warned)
+                             warned=warned, noise=noise)
 
 
 def _conv_im2col_exec(x, w, pol, stride, padding, backend=None,
                       strict=False, path=None, out_policy=None,
-                      warned=None) -> Tuple[Any, BK.Backend]:
+                      warned=None, noise=None) -> Tuple[Any, BK.Backend]:
     if is_prequant(x):      # im2col gathers float patches
         x = dequantize_act(x)
     prequant = is_prequant(w)
@@ -170,7 +203,8 @@ def _conv_im2col_exec(x, w, pol, stride, padding, backend=None,
     wmat = ({"m": conv_weight_matrix(w["m"]), "s": w["s"]} if prequant
             else conv_weight_matrix(w))
     out, be = _gemm_exec(cols, wmat, pol, backend=backend, strict=strict,
-                         path=path, out_policy=out_policy, warned=warned)
+                         path=path, out_policy=out_policy, warned=warned,
+                         noise=noise)
     return _reshape_out(out, (b, oh, ow), oc), be
 
 
@@ -202,7 +236,8 @@ def gemm(x: Any, w: Any, policy: PolicyLike = None, *,
 
 def conv2d(x: Any, w: Any, policy: PolicyLike = None, *,
            stride: int = 1, padding: str = "SAME",
-           path: Optional[str] = None, out_policy=None) -> Any:
+           path: Optional[str] = None, out_policy=None,
+           noise: Optional[torch.Tensor] = None) -> Any:
     """NHWC convolution through the policy-selected BFP backend.
 
     ``x``: [B, H, W, C] float, or the NHWC activation wire format (blocks
@@ -211,21 +246,27 @@ def conv2d(x: Any, w: Any, policy: PolicyLike = None, *,
     ``out_policy=`` returns the wire format, as in :func:`gemm`: chained
     convs on the cuda backend hand ``{"m", "s"}`` activations layer to
     layer with no f32 activation in device memory.
+    ``noise``: uniform noise in [0, 1) for a STOCHASTIC policy (where
+    ``repro`` takes ``key=``), with the elements of the im2col patch
+    matrix ``[B*OH*OW, kh*kw*C]`` in its row-major order (HWIO-major
+    K): the x that the GEMM rounds, so the rule of :func:`gemm`.
     """
     if isinstance(policy, _plan_cls()):
         return policy.conv2d(x, w, path=path, stride=stride, padding=padding,
-                             out_policy=out_policy)
+                             out_policy=out_policy, noise=noise)
     return _conv_exec(x, w, resolve_policy(policy, path), stride, padding,
-                      path=path, out_policy=out_policy)[0]
+                      path=path, out_policy=out_policy, noise=noise)[0]
 
 
 def conv2d_im2col(x: Any, w: Any, pol, stride: int = 1,
-                  padding: str = "SAME", out_policy=None) -> Any:
+                  padding: str = "SAME", out_policy=None,
+                  noise: Optional[torch.Tensor] = None) -> Any:
     """The materialized-im2col route (paper Fig. 1's matrix form) through
     the GEMM engine; :func:`conv2d`'s fallback.  ``pol`` is an already
-    resolved BFPPolicy or None; a wire-format ``x`` is dequantized."""
+    resolved BFPPolicy or None; a wire-format ``x`` is dequantized;
+    ``noise`` as in :func:`conv2d`."""
     return _conv_im2col_exec(x, w, pol, stride, padding,
-                             out_policy=out_policy)[0]
+                             out_policy=out_policy, noise=noise)[0]
 
 
 def prequantize_cnn(params: Any, policy: PolicyLike) -> Any:

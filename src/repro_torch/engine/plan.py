@@ -17,7 +17,8 @@ Chained layers hand activations over in the wire format:
     z = plan.conv2d(y, w2, path="conv3_2")
 
 Backward plans (``Site.dx``/``dw``) arrive with the training slice and
-stay None here.
+stay None here; until then a kernel-backend site refuses an operand that
+requires grad (``engine.core``), where it would get a zero gradient.
 """
 from __future__ import annotations
 
@@ -120,15 +121,16 @@ class Plan:
 
     def conv2d(self, x: Any, w: Any, *, path: Optional[str] = None,
                stride: int = 1, padding: str = "SAME",
-               out_policy=None) -> Any:
+               out_policy=None, noise=None) -> Any:
         site = self._sites.get(path)
         if site is not None and site.kind == "conv":
             return _conv_exec(x, w, site.policy, stride, padding,
                               backend=site.backend, path=path,
-                              out_policy=out_policy)[0]
+                              out_policy=out_policy, noise=noise)[0]
         return _conv_exec(x, w, resolve_policy(self.policy, path), stride,
                           padding, strict=self.strict, path=path,
-                          out_policy=out_policy, warned=self._warned)[0]
+                          out_policy=out_policy, warned=self._warned,
+                          noise=noise)[0]
 
     def jit_forward(self, apply_fn):
         """``apply_fn(plan.params, x, plan)`` as one callable, cached per

@@ -1,4 +1,10 @@
-// Fused implicit-im2col BFP convolution for Hopper (sm_90a):
+// BFP convolution for Hopper (sm_90a).  Two cores share this library:
+// the weight-prequant modes with f32 output run on the int8 mma.sync core
+// of bfp_mma.cuh after its activation format pass (bfp_conv_xformat_launch,
+// bfp_conv_mma_launch; that header's note states its design); every
+// other conv mode runs on the tile kernel, as follows.
+//
+// Fused implicit-im2col BFP convolution on the tile kernel:
 // NHWC x [B, H, W, C] (*) HWIO w [KH, KW, C, OC] -> f32 [B, OH, OW, OC],
 // or the requantized activation wire format (int8 [B, OH, OW, OC] + f32
 // steps [B, OH, OW, OC / out_block]) when out_bits > 0.
@@ -19,16 +25,61 @@
 // 3.35 TB/s than their 0.7-15 G MACs take at the int8 tensor-core rate;
 // on the wire format (int8 in and out) those bytes shrink about 4x.
 // The deep ones (conv4_x, conv5_x: 14x14 and 28x28 planes, 512 channels)
-// are operations-bound.  This first kernel runs __dp4a on the CUDA cores
+// are operations-bound.  The tile kernel runs __dp4a on the CUDA cores
 // and gathers every receptive-field element from global memory
 // (L2-resident) once or twice per output-channel tile, so it sits far
-// above either bound; the design answer is on-chip row windows feeding
-// int8 wgmma, with activations read once per tile, in a later PR.
+// above either bound.  The weight-prequant modes with an f32 output left
+// it for the mma core (x formatted once per pixel chunk, int8 tensor
+// cores); the inline and x-prequant convs and the epilogue are still to
+// move.
 //
 // Padding is never materialized: an output pixel's receptive field
 // starts at (oh*S - PT, ow*S - PL) and reads outside the input are zero
 // (SAME or VALID geometry, any stride and kernel size, from the caller).
+#include "bfp_mma.cuh"
 #include "bfp_tile.cuh"
+
+// Block-format an f32 NHWC activation per (pixel, bk channel chunk):
+// int8 mantissas [B, H, W, C] + f32 steps [B, H, W, C / bk]; n_chunks =
+// B*H*W*C / bk.
+extern "C" int bfp_conv_xformat_launch(const void* x, void* xm, void* xs,
+                                       long long n_chunks, int bk, int bits,
+                                       void* stream) {
+  return bfp_mma::launch_xformat(static_cast<const float*>(x),
+                                 static_cast<int8_t*>(xm),
+                                 static_cast<float*>(xs), n_chunks, bk, bits,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// The conv with both operands in the wire format (x: the format pass's
+// output or a previous layer's epilogue) on the int8 mma core -> f32.
+extern "C" int bfp_conv_mma_launch(const void* xm, const void* xs,
+                                   const void* wm, const void* ws, void* out,
+                                   int B, int H, int W, int C, int KH, int KW,
+                                   int OC, int stride, int OH, int OW,
+                                   int pad_top, int pad_left, int bk,
+                                   int tile, void* stream) {
+  bfp_mma::ConvParams p = {};
+  p.xm = static_cast<const int8_t*>(xm);
+  p.xs = static_cast<const float*>(xs);
+  p.wm = static_cast<const int8_t*>(wm);
+  p.ws = static_cast<const float*>(ws);
+  p.out = static_cast<float*>(out);
+  p.M = B * OH * OW;
+  p.N = OC;
+  p.K = KH * KW * C;
+  p.bk = bk;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.KW = KW;
+  p.S = stride;
+  p.OH = OH;
+  p.OW = OW;
+  p.PT = pad_top;
+  p.PL = pad_left;
+  return bfp_mma::launch_conv(p, tile, static_cast<cudaStream_t>(stream));
+}
 
 extern "C" int bfp_conv_launch(const void* x, const void* xs, const void* w,
                                const void* ws, void* out, void* out_s, int B,

@@ -50,10 +50,8 @@
 //    WIDE: int32 MACs in 32-wide chunks).  Shared memory depends on the
 //    tile, never on bk, and stays static (< 48 KB), so any bk the int32
 //    overflow guard admits runs.
-//  * v / step: a step is a power of two, so v * 2^-s is the same real
-//    number as v / 2^s and rounds identically whenever 2^-s is itself
-//    a float (|s| <= 127); only then is the reciprocal used, and
-//    __fdiv_rn otherwise (a subnormal step's reciprocal overflows).
+//  * the block rules (amax bits -> step, v -> mantissa) live in
+//    bfp_block.cuh, shared with the int8 mma conv core (bfp_mma.cuh).
 //  * CONV gathers receptive-field rows straight from the NHWC input in
 //    global memory (HWIO-major k = (di*KW + dj)*C + c), zero in the
 //    padding and beyond K: no padded copy, no whole planes in shared
@@ -63,11 +61,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bfp_block.cuh"
+
 namespace bfp {
 
 constexpr int BM = 64;         // output rows (pixels) per block
 constexpr int NT = 256;        // threads per block (16 x 16)
-constexpr int ZERO_BLOCK_EXP = -126;
 constexpr int EPI_COLS = 128;  // epilogue column tile: out_block divides it
 
 struct Params {
@@ -83,56 +82,6 @@ struct Params {
   int M, N, K, bk, l_i, l_w, out_bits, out_block;
   int H, W, C, KW, S, OH, OW, PT, PL;   // conv geometry
 };
-
-// Exact float32 2^e (repro.core.bfp.pow2): exponent field for normals,
-// one mantissa bit for subnormals, +0 below 2^-149, +inf above 2^127.
-__device__ __forceinline__ float pow2i(int e) {
-  if (e < -149) return 0.0f;
-  if (e > 127) return __int_as_float(0x7F800000);
-  if (e >= -126) return __int_as_float((e + 127) << 23);
-  return __int_as_float(1 << (e + 149));
-}
-
-// Block parameters from the amax bit pattern.  mode 0: zero block
-// (mantissas 0); 1: multiply by the exact reciprocal; 2: IEEE divide.
-__device__ __forceinline__ void block_params(unsigned amax_bits, int bits,
-                                             float* step, float* inv,
-                                             int* mode) {
-  const float amax = __uint_as_float(amax_bits);
-  if (!(amax > 0.0f)) {
-    *step = pow2i(ZERO_BLOCK_EXP - (bits - 2));
-    *inv = 0.0f;
-    *mode = 0;
-    return;
-  }
-  const int e = (int)((amax_bits >> 23) & 0xFFu) - 127;
-  const int s = e - (bits - 2);
-  *step = pow2i(s);
-  if (s >= -127 && s <= 127) {
-    *inv = pow2i(-s);
-    *mode = 1;
-  } else {
-    *inv = 0.0f;
-    *mode = 2;
-  }
-}
-
-__device__ __forceinline__ int quant(float v, float step, float inv, int mode,
-                                     int lim) {
-  if (mode == 0) return 0;
-  const float q = (mode == 1) ? __fmul_rn(v, inv) : __fdiv_rn(v, step);
-  const int m = __float2int_rn(q);   // half-to-even; saturates, NaN -> 0
-  return min(max(m, -lim), lim);
-}
-
-__device__ __forceinline__ int pack4(const int v[4]) {
-  return (int)(((unsigned)v[0] & 0xFFu) | (((unsigned)v[1] & 0xFFu) << 8) |
-               (((unsigned)v[2] & 0xFFu) << 16) | ((unsigned)v[3] << 24));
-}
-
-__device__ __forceinline__ unsigned abs_bits(float v) {
-  return __float_as_uint(fabsf(v));
-}
 
 // x[row, k] (f32 or wire mantissa) for a row < M and k < K.  CONV reads
 // the receptive field, 0 outside the image.

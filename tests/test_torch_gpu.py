@@ -180,6 +180,57 @@ def test_cuda_wire_kernels_and_epilogue_match_plain_versions(cuda):
     torch.cuda.synchronize()
 
 
+# (B, H, W, C, kernel, stride, padding, OC, bk, L): the int8 mma core at
+# served shapes (ResNet-50 stage 4, VGG16 conv5, a stride-2 projection,
+# GoogLeNet's 1x1 -> 24) and ragged ones (M or N not a tile multiple, bk
+# 32 and 64, L 4), over all four tiles
+MMA_CASES = [(8, 7, 7, 512, 3, 1, "SAME", 512, 128, 8),
+             (8, 14, 14, 512, 3, 1, "SAME", 512, 128, 8),
+             (8, 14, 14, 1024, 1, 2, "SAME", 2048, 128, 8),
+             (8, 14, 14, 512, 1, 1, "SAME", 24, 128, 8),
+             (3, 7, 5, 256, 3, 2, "VALID", 40, 64, 4),
+             (2, 9, 6, 96, 3, 1, "SAME", 36, 32, 8),
+             (8, 29, 29, 128, 3, 1, "SAME", 256, 128, 8),
+             (8, 28, 28, 256, 1, 1, "SAME", 200, 128, 8)]
+
+
+@pytest.mark.gpu
+def test_cuda_mma_core_and_format_pass_match_plain_versions(cuda):
+    """The activation format pass and the int8 mma conv core against
+    their plain versions on the card, bit-equal: zero, NaN, inf and
+    subnormal-amax pixel chunks, an inf weight step; the prequant conv
+    launches one format pass and one core launch, the xw-prequant conv
+    one core launch."""
+    for case in MMA_CASES:
+        b, h, wd, c, kk, s, pad, oc, bk, L = case
+        assert KC.conv_core(False, True, bk, c, oc, L) == "mma", case
+        x = t(normal((b, h, wd, c), seed=c + oc)).to(cuda)
+        x[0, 0, 0, :bk] = 0.0
+        x[0, 1, 1, 3] = float("nan")
+        x[-1, 2, 2, bk - 1] = float("inf")
+        x[0, h - 1, wd - 1, :bk] = 1e-40
+        w = t(normal((kk, kk, c, oc), seed=oc, scale=0.05)).to(cuda)
+        d = prequant_conv_leaf(w, TPU_TILED.with_(block_k=bk))
+        d["s"][-1, 1] = float("inf")
+        xm, xs = KC.bfp_conv2d_xformat(x, l_i=L, bk=bk)
+        pm, ps = KC.bfp_conv2d_xformat_plain(x, L, bk)
+        assert torch.equal(xm, pm) and torch.equal(_bits(xs), _bits(ps)), \
+            case
+        K.reset_launch_counts()
+        got = KC.bfp_conv2d_prequant(x, d["m"], d["s"], l_i=L, l_w=8, bk=bk,
+                                     stride=s, padding=pad)
+        counts = K.launch_counts()
+        assert counts["bfp_conv2d_xformat"] == 1 and \
+            counts["bfp_conv2d_prequant"] == 1, (case, counts)
+        want = KC.bfp_conv2d_prequant_plain(x, d["m"], d["s"], L, 8, bk, s,
+                                            pad)
+        _both_equal(got, want, ("prequant", case))
+        got = KC.bfp_conv2d_xwprequant(xm, xs, d["m"], d["s"], l_i=L, l_w=8,
+                                       bk=bk, stride=s, padding=pad)
+        _both_equal(got, want, ("xwprequant", case))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_cuda_chain_on_the_wire_equals_the_float_chain(cuda):
     """Through the engine on the card: each producer's fused epilogue
