@@ -9,25 +9,33 @@ raises (and so exits non-zero) when it fails:
 1. the card's name and power limit (nvidia-smi); TF32 off;
 2. build the three CUDA kernel sources for sm_90a, in parallel
    (``bfp_conv.cu`` holds both conv cores: the tile kernel and the int8
-   ``mma.sync`` core with its activation format pass), and print each
-   kernel's ptxas registers, shared memory and spills;
+   ``mma.sync`` core with its activation and patch format passes), and
+   print each kernel's ptxas registers, shared memory and spills;
 3. each kernel against its plain PyTorch version on the card, bit-equal
-   (``torch.equal``), at full-width VGG16 shapes at batch 8, and the
-   int8 mma core (the weight-prequant convs) with its activation format
-   pass at ResNet-50 stage-4 and VGG16 conv5 shapes and at a ragged M;
+   (``torch.equal``), at full-width VGG16 shapes at batch 8; the int8
+   mma core (the weight-prequant convs) with its activation format pass
+   at ResNet-50 stage-4 and VGG16 conv5 shapes and at a ragged M; the
+   inline conv on the mma core with its patch format pass (each also
+   alone) at K = 27, 147/2, 576, 400, 864 and 1x1 over C = 192, 480,
+   832, N = 16..192, blocks 32/128/512, L 4/8, and at a ragged shape
+   with zero, NaN, inf and subnormal pixels, K-tiles wholly outside the
+   image and an inf weight; and one conv whose policy names no block
+   (``ops.bfp_conv2d``, whole-K);
 4. the main path: full-width VGG16 (224x224x3, 1000 classes, seeded
    random weights) bound with ``PALLAS_TILED`` (strict, prequantized) and
    served through ``CnnServeEngine`` — 16 requests, no failures, no float
-   retries, 3 inline-conv / 10 prequant-conv (each one format pass and
-   one mma-core launch) / 3 prequant-matmul launches per forward,
-   logits bit-equal to a direct ``apply`` and to a forward through a
-   backend made of the plain versions.  The reduced
-   VGG16 of the model registry is served the same way: its FC layers
-   (K = 64) take the inline-weight matmul kernel;
+   retries, 3 inline-conv (each one patch format pass and one mma-core
+   launch) / 10 prequant-conv (each one format pass and one mma-core
+   launch) / 3 prequant-matmul launches per forward, logits bit-equal to
+   a direct ``apply`` and to a forward through a backend made of the
+   plain versions.  The reduced VGG16 of the model registry is served
+   the same way: its 13 convs inline on the mma core, its FC layers
+   (K = 64) on the inline-weight matmul kernel;
 5. CUDA-event times of each kernel and its plain version at the phase-3
    shapes and at every layer of one batch-8 forward of each path (each
    layer also checked bit-equal to its plain version, with its bound and
-   the core it ran on, and a prequant conv's format pass timed alone),
+   the core it ran on, and a conv's format pass on the mma core timed
+   alone),
    served req/s, and one more served run under ``torch.profiler``
    (device-busy share, host time by op; trace in
    ``chiprun_out/serve_trace.json``);
@@ -61,7 +69,8 @@ raises (and so exits non-zero) when it fails:
    to a direct apply and to the plain-version forward), each with its
    CUDA-event forward time and served req/s, and ResNet-50 layer by
    layer at its own inputs (kernel, plain, bound, core) with its sums by
-   stage, and a yardstick for the int dot alone: ``torch._int_mm`` on
+   stage, GoogLeNet layer by layer the same way, and a yardstick for
+   the int dot alone: ``torch._int_mm`` on
    the im2col'd int8 operands of a stage-4 3x3 conv (not the same
    function: no block steps, no tile-ordered f32 sum; the port never
    calls it);
@@ -77,9 +86,10 @@ raises (and so exits non-zero) when it fails:
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
    layers that run it, per batch-8 forward (per chain run for the
    wire-format kernels, per formatting of ResNet-50 for
-   ``bfp_quantize``).  ``bfp_conv2d_prequant``'s ms is its wrapper's:
-   the format pass and the core; ``bfp_conv2d_xformat``'s row is the
-   format pass alone.
+   ``bfp_quantize``).  ``bfp_conv2d_prequant``'s and ``bfp_conv2d``'s
+   ms are their wrappers': the format pass and the core;
+   ``bfp_conv2d_xformat``'s and ``bfp_conv2d_pformat``'s rows are the
+   format passes alone.
 """
 from __future__ import annotations
 
@@ -107,7 +117,7 @@ SOURCES = {"bfp_matmul": _MM_CU, "bfp_matmul_prequant": _MM_CU,
            "bfp_matmul_xprequant": _MM_CU, "bfp_matmul_xwprequant": _MM_CU,
            "bfp_conv2d": _CONV_CU, "bfp_conv2d_prequant": _CONV_CU,
            "bfp_conv2d_xprequant": _CONV_CU, "bfp_conv2d_xwprequant": _CONV_CU,
-           "bfp_conv2d_xformat": _CONV_CU,
+           "bfp_conv2d_xformat": _CONV_CU, "bfp_conv2d_pformat": _CONV_CU,
            "bfp_quantize": "src/repro_torch/kernels/csrc/bfp_quantize.cu"}
 REPLACES = {"bfp_matmul": "src/repro/kernels/bfp_matmul.py:362",
             "bfp_matmul_prequant": "src/repro/kernels/bfp_matmul.py:388",
@@ -120,6 +130,9 @@ REPLACES = {"bfp_matmul": "src/repro/kernels/bfp_matmul.py:362",
             # the x quantization inside _make_conv_kernel, which the
             # prequant conv now does once per pixel chunk
             "bfp_conv2d_xformat": "src/repro/kernels/bfp_conv.py:94",
+            # x_tile / w_tile of _make_conv_kernel, which the inline conv
+            # now formats once per patch block and weight block
+            "bfp_conv2d_pformat": "src/repro/kernels/bfp_conv.py:131",
             "bfp_quantize": "src/repro/kernels/bfp_quantize.py:38"}
 #: counters of the wire-format kernels and of the fused epilogue, which
 #: no served path launches (phase 4 expects them at 0)
@@ -147,26 +160,37 @@ CHAIN_STAGES = (("conv2_1", "conv2_2"), ("conv3_1", "conv3_2", "conv3_3"),
 #: 4d/b3 (1296), 4d/b5 (800) and loss2/conv (528): 40; prequant the other
 #: 19; the five GEMMs (fc, loss1|2/fc1|fc2: K 1024 or 2048) prequant.
 #: Every prequant conv (block 128 | C, OC a multiple of 4, f32 out) runs
-#: the int8 mma core after one activation format pass.
+#: the int8 mma core after one activation format pass, and every inline
+#: conv (OC a multiple of 4, f32 out) after one patch format pass.
 MODEL_LAUNCHES = {
-    "resnet50_full": {"bfp_conv2d": 9, "bfp_conv2d_prequant": 44,
-                      "bfp_conv2d_xformat": 44, "bfp_matmul_prequant": 1},
-    "resnet18_full": {"bfp_conv2d": 7, "bfp_conv2d_prequant": 13,
-                      "bfp_conv2d_xformat": 13, "bfp_matmul_prequant": 1},
-    "googlenet_full": {"bfp_conv2d": 40, "bfp_conv2d_prequant": 19,
-                       "bfp_conv2d_xformat": 19, "bfp_matmul_prequant": 5}}
+    "resnet50_full": {"bfp_conv2d": 9, "bfp_conv2d_pformat": 9,
+                      "bfp_conv2d_prequant": 44, "bfp_conv2d_xformat": 44,
+                      "bfp_matmul_prequant": 1},
+    "resnet18_full": {"bfp_conv2d": 7, "bfp_conv2d_pformat": 7,
+                      "bfp_conv2d_prequant": 13, "bfp_conv2d_xformat": 13,
+                      "bfp_matmul_prequant": 1},
+    "googlenet_full": {"bfp_conv2d": 40, "bfp_conv2d_pformat": 40,
+                       "bfp_conv2d_prequant": 19, "bfp_conv2d_xformat": 19,
+                       "bfp_matmul_prequant": 5}}
+#: the format passes of the mma core, timed alone as rows of their own
+#: beside the layer whose time includes them
+FORMAT_PASSES = ("bfp_conv2d_xformat", "bfp_conv2d_pformat")
 #: offline formatting of ResNet-50: one launch per prequantized weight
 FORMAT_LAUNCHES = {"bfp_quantize": 45}
 #: (M, K, bk, bits) of the phase-7 checks: ragged M and K, blocks 32, 128
 #: and 512, L 4 and 8 (rows 0-4 of each carry the hazard blocks)
 Q_SHAPES = ((1000, 2047, 128, 8), (37, 300, 32, 4), (512, 4608, 512, 8),
             (2049, 1153, 128, 8), (64, 147, 32, 8), (300, 96, 512, 4))
+#: every inline conv in the chains runs the epilogue, so on the tile
+#: kernel: no patch format pass
 CHAIN_LAUNCHES = {
-    "chain_A": {"bfp_conv2d": 1, "bfp_conv2d_prequant": 3,
+    "chain_A": {"bfp_conv2d": 1, "bfp_conv2d_pformat": 0,
+                "bfp_conv2d_prequant": 3,
                 "bfp_conv2d_xwprequant": 7, "bfp_matmul_prequant": 1,
                 "bfp_matmul_xwprequant": 2, "bfp_conv2d_epilogue": 7,
                 "bfp_matmul_epilogue": 2},
-    "chain_B": {"bfp_conv2d": 4, "bfp_conv2d_xprequant": 7,
+    "chain_B": {"bfp_conv2d": 4, "bfp_conv2d_pformat": 0,
+                "bfp_conv2d_xprequant": 7,
                 "bfp_matmul": 1, "bfp_matmul_xprequant": 2,
                 "bfp_conv2d_epilogue": 7, "bfp_matmul_epilogue": 2}}
 
@@ -314,11 +338,14 @@ def main() -> int:
 
     # -- 3. each kernel against its plain version at main-path shapes -------
     # (label, path, kernel, kernel call, plain call, x, weight parts, M, N,
-    # K); path is the served path that runs the shape, or "off_path"
+    # K, core); path is the served path that runs the shape, or
+    # "off_path"
     cases = []
 
-    def conv_case(label, path, x, w, stride, prequant, padding="SAME"):
+    def conv_case(label, path, x, w, stride, prequant, padding="SAME",
+                  cbk=bk, L=8):
         kh, kw, c, oc = w.shape
+        core = KC.conv_core(False, prequant, cbk, c, oc, L, None, L)
         if prequant:
             d = prequant_conv_leaf(w, pol)
             parts = (d["m"], d["s"])
@@ -330,19 +357,28 @@ def main() -> int:
         else:
             parts = (w,)
             call = lambda: KC.bfp_conv2d(  # noqa: E731
-                x, w, l_i=8, l_w=8, bk=bk, stride=stride)
-            plain = lambda: KC.bfp_conv2d_plain(x, w, 8, 8, bk,  # noqa: E731
-                                                stride)
+                x, w, l_i=L, l_w=L, bk=cbk, stride=stride, padding=padding)
+            plain = lambda: KC.bfp_conv2d_plain(  # noqa: E731
+                x, w, L, L, cbk, stride, padding)
         name = "bfp_conv2d_prequant" if prequant else "bfp_conv2d"
         oh, ow, _, _ = conv_geometry(x.shape[1], x.shape[2], kh, kw, stride,
                                      padding)
-        cases.append((label, path, name, call, plain, x, parts,
-                      x.shape[0] * oh * ow, oc, kh * kw * c))
+        m = x.shape[0] * oh * ow
+        cases.append((label, path, name, call, plain, x, parts, m, oc,
+                      kh * kw * c, core))
         if prequant:        # its format pass, alone
             cases.append((label, path, "bfp_conv2d_xformat",
                           lambda: KC.bfp_conv2d_xformat(x, l_i=8, bk=bk),
                           lambda: KC.bfp_conv2d_xformat_plain(x, 8, bk), x,
-                          (), x.numel() // bk, bk, 0))
+                          (), x.numel() // bk, bk, 0, core))
+        elif core == "mma":  # its patch format pass, alone
+            cases.append((label, path, "bfp_conv2d_pformat",
+                          lambda: KC.bfp_conv2d_pformat(
+                              x, w, l_i=L, l_w=L, bk=cbk, stride=stride,
+                              padding=padding),
+                          lambda: KC.bfp_conv2d_pformat_plain(
+                              x, w, L, L, cbk, stride, padding), x, (w,),
+                          m, oc, 0, core))
 
     def mm_case(label, path, x, w, prequant):
         if prequant:
@@ -359,7 +395,7 @@ def main() -> int:
             plain = lambda: KM.bfp_matmul_plain(x, w, 8, 8, bk)  # noqa: E731
         name = "bfp_matmul_prequant" if prequant else "bfp_matmul"
         cases.append((label, path, name, call, plain, x, parts, x.shape[0],
-                      w.shape[1], w.shape[0]))
+                      w.shape[1], w.shape[0], "tile"))
 
     b, full_p, red_p = 8, "vgg16_full", "vgg16_reduced"
     conv_case("conv1_1", full_p, rnd(b, 224, 224, 3),
@@ -370,8 +406,40 @@ def main() -> int:
               rnd(3, 3, 256, 256, scale=0.03), 1, True)
     conv_case("conv5_3", full_p, rnd(b, 14, 14, 512, relu=True),
               rnd(3, 3, 512, 512, scale=0.02), 1, True)
-    conv_case("stem7x7s2", "off_path", rnd(b, 224, 224, 3),
+    conv_case("stem7x7s2", "resnet50_full", rnd(b, 224, 224, 3),
               rnd(7, 7, 3, 64, scale=0.12), 2, False)
+    # the inline conv on the mma core at GoogLeNet's inline shapes (K 400,
+    # 864; 1x1 over C = 192, 480, 832), blocks 32/128/512, L 4/8, N 16,
+    # 24, 64, 128 and 192
+    gn_p = "googlenet_full"
+    conv_case("gn3a_5x5", gn_p, rnd(b, 28, 28, 16, relu=True),
+              rnd(5, 5, 16, 24, scale=0.05), 1, False, cbk=32, L=4)
+    conv_case("gn3a_3x3", gn_p, rnd(b, 28, 28, 96, relu=True),
+              rnd(3, 3, 96, 128, scale=0.03), 1, False)
+    conv_case("gn3a_1x1", gn_p, rnd(b, 28, 28, 192, relu=True),
+              rnd(1, 1, 192, 64, scale=0.07), 1, False)
+    conv_case("gn4a_1x1", gn_p, rnd(b, 14, 14, 480, relu=True),
+              rnd(1, 1, 480, 16, scale=0.05), 1, False, cbk=512)
+    conv_case("gn5b_1x1", gn_p, rnd(b, 7, 7, 832, relu=True),
+              rnd(1, 1, 832, 192, scale=0.03), 1, False, cbk=32, L=4)
+    # ... and at a ragged shape (M = 189, N = 20) with hazards: a zero, a
+    # NaN and an inf pixel, a subnormal image, K-tiles wholly outside the
+    # image (a 7x7 SAME window at the corners, block 32) and an inf weight
+    xp = rnd(3, 9, 7, 4)
+    xp[1] = 1e-40 * torch.sign(xp[1])
+    xp[0, 0, 0, :] = 0.0
+    xp[0, 0, 1, 2] = float("nan")
+    xp[2, 8, 6, 3] = float("inf")
+    wp = rnd(7, 7, 4, 20, scale=0.05)
+    wp[0, 0, 0, 1] = float("inf")
+    conv_case("ragged_7x7", "off_path", xp, wp, 1, False, cbk=32)
+    # a policy that names no block: ops takes whole-K (576, tile kernel)
+    x0, w0 = rnd(b, 28, 28, 64, relu=True), rnd(3, 3, 64, 64, scale=0.06)
+    cases.append(("wholeK_576", "off_path", "bfp_conv2d",
+                  lambda: ops.bfp_conv2d(x0, w0, pol.with_(block_k=None)),
+                  lambda: KC.bfp_conv2d_plain(x0, w0, 8, 8, 576), x0, (w0,),
+                  b * 28 * 28, 64, 576,
+                  KC.conv_core(False, False, 576, 64, 64, 8)))
     # the mma core at ResNet-50 stage-4 shapes (3x3 and the stride-2
     # projection into the stage), and at a ragged M (3 images of 7x7 at
     # stride 2 VALID: 27 rows) with hazard chunks (zero, NaN, inf,
@@ -410,19 +478,16 @@ def main() -> int:
                     for u, v in zip(a, b)), default=0.0)
 
     errs = {}
-    for label, path, name, call, plain, x, *_ in cases:
+    for label, path, name, call, plain, x, *_, core in cases:
         got, want = call(), plain()
         torch.cuda.synchronize()
         err = diff(got, want)
         equal = all(torch.equal(u, v) for u, v in zip(nan_bits(got),
                                                       nan_bits(want)))
         shape = tuple((got[0] if isinstance(got, tuple) else got).shape)
-        core = ""
-        if name.startswith("bfp_conv2d") and name != "bfp_conv2d_xformat":
-            core = " core=" + KC.conv_core(False, name.endswith("prequant"),
-                                           bk, x.shape[3], shape[3], 8)
-        print(f"check {label:<11} {path:<13} {name:<20} {shape} "
-              f"torch.equal={equal} max_abs_diff={err}{core}", flush=True)
+        print(f"check {label:<11} {path:<14} {name:<20} {shape} "
+              f"torch.equal={equal} max_abs_diff={err} core={core}",
+              flush=True)
         check(equal, f"{name} differs from its plain version at {label}")
         errs[name] = max(errs.get(name, 0.0), err)
 
@@ -523,14 +588,15 @@ def main() -> int:
     full_params = vgg.init(gen, device=dev)
     plan, eng, images, launches[full_p] = serve(
         full_p, full_params, 224,
-        {"bfp_conv2d": 3, "bfp_conv2d_prequant": 10,
+        {"bfp_conv2d": 3, "bfp_conv2d_pformat": 3, "bfp_conv2d_prequant": 10,
          "bfp_conv2d_xformat": 10, "bfp_matmul_prequant": 3,
          "bfp_matmul": 0,
          **dict.fromkeys(WIRE_COUNTERS, 0)})
     red_plan, _, red_images, launches[red_p] = serve(
         red_p, MODELS["vgg16"].init(gen, reduced=True, device=dev), 32,
-        {"bfp_conv2d": 13, "bfp_conv2d_prequant": 0,
-         "bfp_conv2d_xformat": 0, "bfp_matmul_prequant": 0,
+        {"bfp_conv2d": 13, "bfp_conv2d_pformat": 13,
+         "bfp_conv2d_prequant": 0, "bfp_conv2d_xformat": 0,
+         "bfp_matmul_prequant": 0,
          "bfp_matmul": 3,
          **dict.fromkeys(WIRE_COUNTERS, 0)})
 
@@ -538,7 +604,7 @@ def main() -> int:
     detail = {"card": card, "kind": device_kind, "seed": args.seed, "shapes": [],
               "layers": {}, "launches": launches,
               "build_s": times}
-    for label, path, name, call, plain, x, parts, m, n, k in cases:
+    for label, path, name, call, plain, x, parts, m, n, k, _ in cases:
         out = call()
         ms = cuda_ms(call, reps=20)
         pms = cuda_ms(plain, reps=3)
@@ -547,7 +613,7 @@ def main() -> int:
                "plain_ms": pms, "bound_ms": bms, "bound_by": by, "M": m,
                "N": n, "K": k}
         detail["shapes"].append(row)
-        print(f"time {label:<11} {path:<13} {name:<20} kernel {ms:.4f} ms  "
+        print(f"time {label:<11} {path:<14} {name:<20} kernel {ms:.4f} ms  "
               f"plain {pms:.4f} ms  bound {bms:.4f} ms ({by})  [{card}]",
               flush=True)
 
@@ -604,14 +670,15 @@ def main() -> int:
                 bms, by = bound(x, parts, out, out.numel() // n, n, k)
                 core = (KC.conv_core(is_prequant(x), is_prequant(w),
                                      k // w["s"].shape[0] if is_prequant(w)
-                                     else pol.block_k, c, n, pol.l_i)
+                                     else pol.block_k, c, n, pol.l_i, None,
+                                     pol.l_w)
                         if op == "conv" else "tile")
                 rows[path] = {"kernel": kname, "core": core,
                               "shape": [out.numel() // n, n, k],
                               "ms": cuda_ms(call, reps=5),
                               "plain_ms": cuda_ms(plain, reps=2),
                               "bound_ms": bms, "bound_by": by}
-                if core == "mma" and not is_prequant(x):
+                if core == "mma" and is_prequant(w) and not is_prequant(x):
                     # the format pass inside that call, alone: x f32 in,
                     # int8 mantissas and f32 steps out
                     fbk = k // w["s"].shape[0]
@@ -629,6 +696,28 @@ def main() -> int:
                         "ms": cuda_ms(fmt, reps=5),
                         "plain_ms": cuda_ms(fplain, reps=2),
                         "bound_ms": fb, "bound_by": fby}
+                elif core == "mma" and not is_prequant(w):
+                    # the patch format pass inside that call, alone: x
+                    # and w f32 in, the patch and weight blocks out
+                    fmt = lambda: KC.bfp_conv2d_pformat(  # noqa: E731
+                        x, w, l_i=pol.l_i, l_w=pol.l_w, bk=pol.block_k,
+                        stride=stride, padding=padding)
+                    fplain = lambda: KC.bfp_conv2d_pformat_plain(  # noqa
+                        x, w, pol.l_i, pol.l_w, pol.block_k, stride,
+                        padding)
+                    got, want = fmt(), fplain()
+                    check(all(torch.equal(u, v) for u, v in zip(
+                        nan_bits(got), nan_bits(want))),
+                        f"{label} {path}: patch format pass != plain")
+                    errs["bfp_conv2d_pformat"] = max(
+                        errs.get("bfp_conv2d_pformat", 0.0), diff(got, want))
+                    fb, fby = bound(x, (w,), got, out.numel() // n, n, 0)
+                    rows[path + "/pformat"] = {
+                        "kernel": "bfp_conv2d_pformat", "core": "mma",
+                        "shape": [out.numel() // n, n, k],
+                        "ms": cuda_ms(fmt, reps=5),
+                        "plain_ms": cuda_ms(fplain, reps=2),
+                        "bound_ms": fb, "bound_by": fby}
         for path, row in rows.items():
             print(f"time layer {label:<13} {path:<12} {row['kernel']:<20} "
                   f"core={row['core']:<4} M,N,K={row['shape']} kernel "
@@ -636,9 +725,9 @@ def main() -> int:
                   f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']})  [{card}]")
         layer_rows = [r for r in rows.values()
-                      if r["kernel"] != "bfp_conv2d_xformat"]
+                      if r["kernel"] not in FORMAT_PASSES]
         fmt_ms = sum(r["ms"] for r in rows.values()
-                     if r["kernel"] == "bfp_conv2d_xformat")
+                     if r["kernel"] in FORMAT_PASSES)
         print(f"time {label}: {len(layer_rows)} layers, kernel "
               f"{sum(r['ms'] for r in layer_rows):.4f} ms, plain "
               f"{sum(r['plain_ms'] for r in layer_rows):.4f} ms, bound "
@@ -809,7 +898,7 @@ def main() -> int:
                         is_prequant(x), is_prequant(w),
                         k // w["s"].shape[0] if is_prequant(w)
                         else pol.block_k, c, n, pol.l_i,
-                        opol.l_i if opol is not None else None)
+                        opol.l_i if opol is not None else None, pol.l_w)
                     row = rows[name] = {
                         "kernel": kernel_of(kplan, name, x), "core": core,
                         "epilogue": opol is not None, "shape": [m, n, k],
@@ -950,11 +1039,14 @@ def main() -> int:
     # ResNet-50 layer by layer, each at its own input from one forward
     r50 = models["resnet50_full"]
     time_layers("resnet50_full", r50["plan"], r50["apply"], r50["images"])
+    # GoogLeNet too: 40 of its 59 convs are inline (K not a block multiple)
+    gn = models["googlenet_full"]
+    time_layers("googlenet_full", gn["plan"], gn["apply"], gn["images"])
     # ... and by stage (blocks/<i> of stage s: cumulative depths)
     ends = np.cumsum(r50["params"]["meta"][1])
     stages = detail["resnet50_full"]["stages"] = {}
     for path, row in detail["layers"]["resnet50_full"].items():
-        if row["kernel"] == "bfp_conv2d_xformat":
+        if row["kernel"] in FORMAT_PASSES:
             continue
         name = path.split("/")[0]
         if name == "blocks":
@@ -985,13 +1077,14 @@ def main() -> int:
             fwd50(xb50)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / 3
-    fam = {"mma core": 0.0, "format pass": 0.0, "tile kernel": 0.0,
-           "other": 0.0}
+    fam = {"mma core": 0.0, "format pass": 0.0, "patch format pass": 0.0,
+           "tile kernel": 0.0, "other": 0.0}
     for e in prof.key_averages():
         if e.self_device_time_total <= 0:
             continue
         key = ("mma core" if "conv_mma_kernel" in e.key else
                "format pass" if "xformat_kernel" in e.key else
+               "patch format pass" if "pformat_kernel" in e.key else
                "tile kernel" if "bfp_tile_kernel" in e.key else "other")
         fam[key] += e.self_device_time_total / 1e3 / 3
     devt = sum(fam.values())

@@ -12,25 +12,38 @@ need ``bk | C``: each patch K-tile is then one (pixel, channel chunk)
 block, so gathering mantissa and step patches equals quantizing the
 float patches inline.  ``out_bits``/``out_block`` request the requantize
 epilogue: ``(int8 [B, OH, OW, OC], f32 steps [B, OH, OW, OC // out_block])``.
-The CUDA kernel gathers the patch rows on chip, so no patch matrix or
-padded input is written to device memory; the plain version
-materializes both.
+No padded input is written to device memory.  The tile kernel and the
+prequant route through the mma core gather patch rows on chip; the
+inline route writes the int8 patch matrix (one byte per element, with
+its steps) between its two launches; the plain version materializes the
+f32 patch matrix.
 
 CPU tensors run the plain version, CUDA tensors launch
 ``csrc/bfp_conv.cu`` or raise.  ``LAUNCHES`` counts kernel launches per
-wrapper, under ``bfp_conv2d_epilogue`` those that ran the epilogue, and
-under ``bfp_conv2d_xformat`` the activation format passes.
+wrapper, under ``bfp_conv2d_epilogue`` those that ran the epilogue,
+under ``bfp_conv2d_xformat`` the activation format passes and under
+``bfp_conv2d_pformat`` the patch format passes.
 
-Two cores.  :func:`mma_core` (a pure function of shape and policy) sends
-the weight-prequant conv and the xw-prequant conv with an f32 output to
-the int8 ``mma.sync`` core (``csrc/bfp_mma.cuh``) when ``bk`` is a
-power of two from 32 to 512 that divides C, x's bits (prequant) are at
-most 8 and OC is a multiple of 4.  The prequant conv then first block-formats
-its f32 input once per (pixel, channel chunk) with the tile kernels'
-rules (:func:`bfp_conv2d_xformat`; plain version
-:func:`bfp_conv2d_xformat_plain`) and runs the core on that wire format.
-Every other conv (inline weights, x-prequant with float weights, the
-requantize epilogue, L > 8, other blocks) runs on the tile kernel
+Two cores, chosen by :func:`conv_core` (a pure function of shape and
+policy).  The int8 ``mma.sync`` core (``csrc/bfp_mma.cuh``) takes every
+conv with an f32 output whose ``bk`` is a power of two from 32 to 512,
+whose quantized operands have L <= 8 and whose OC is a multiple of 4:
+
+* the weight-prequant and xw-prequant convs when ``bk`` also divides C
+  (:func:`mma_core`).  The prequant conv first block-formats its f32
+  input once per (pixel, channel chunk) with the tile kernels' rules
+  (:func:`bfp_conv2d_xformat`; plain version
+  :func:`bfp_conv2d_xformat_plain`) and runs the core on that wire
+  format;
+* the inline-weight conv, whatever C (:func:`patch_core`).  One patch
+  format pass (:func:`bfp_conv2d_pformat`; plain version
+  :func:`bfp_conv2d_pformat_plain`) block-formats the patch matrix per
+  (row, K-tile) and the weight per (K-tile, column), the blocks the tile
+  kernel forms inline, and the core runs as a 1x1 conv over the patch
+  matrix ``[1, M, 1, Kp]``; one host call launches both.
+
+Every other conv (x-prequant with float weights, the requantize
+epilogue, L > 8, other blocks, OC % 4 != 0) runs on the tile kernel
 (``csrc/bfp_tile.cuh``).  The outputs are bit-identical either way; a
 failed build or launch raises, it never falls back to the other core.
 """
@@ -38,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -56,14 +70,17 @@ __all__ = ["bfp_conv2d", "bfp_conv2d_prequant", "bfp_conv2d_xprequant",
            "bfp_conv2d_xwprequant", "bfp_conv2d_xformat", "bfp_conv2d_plain",
            "bfp_conv2d_prequant_plain", "bfp_conv2d_xprequant_plain",
            "bfp_conv2d_xwprequant_plain", "bfp_conv2d_xformat_plain",
-           "mma_core", "mma_tile", "conv_core", "MMA_TILES", "LAUNCHES"]
+           "bfp_conv2d_pformat", "bfp_conv2d_pformat_plain", "mma_core",
+           "patch_core", "mma_tile", "conv_core", "MMA_TILES", "LAUNCHES"]
 
 #: kernel launches per wrapper, incremented only where a kernel launches;
 #: ``bfp_conv2d_epilogue`` counts those that ran the fused epilogue,
-#: ``bfp_conv2d_xformat`` the activation format passes
+#: ``bfp_conv2d_xformat`` the activation format passes and
+#: ``bfp_conv2d_pformat`` the patch format passes
 LAUNCHES = {"bfp_conv2d": 0, "bfp_conv2d_prequant": 0,
             "bfp_conv2d_xprequant": 0, "bfp_conv2d_xwprequant": 0,
-            "bfp_conv2d_epilogue": 0, "bfp_conv2d_xformat": 0}
+            "bfp_conv2d_epilogue": 0, "bfp_conv2d_xformat": 0,
+            "bfp_conv2d_pformat": 0}
 
 #: the mma core's (rows, columns) tiles, largest first (``bfp_mma.cuh``
 #: ``launch_conv``: tile index = position here)
@@ -83,6 +100,14 @@ def _mma_smem(bm: int, bn: int, bk: int) -> int:
     return 3 * (bm * (bk + 16) + bk * (bn + 4) + 4 * (bm + bn)) + bn * bk
 
 
+def _mma_block(bk: int, n: int, out_bits: Optional[int]) -> bool:
+    """What every conv on the mma core needs: an f32 output, a block the
+    core stages (a power of two from 32 to :data:`MMA_MAX_BK`) and an OC
+    that its 4-byte weight copies tile."""
+    return (out_bits is None and 32 <= bk <= MMA_MAX_BK
+            and bk & (bk - 1) == 0 and n % 4 == 0)
+
+
 def mma_core(bk: int, c: int, n: int, out_bits: Optional[int],
              x_bits: Optional[int] = None) -> bool:
     """Does a weight-prequant conv run on the int8 mma core?  ``x_bits``
@@ -91,11 +116,20 @@ def mma_core(bk: int, c: int, n: int, out_bits: Optional[int],
     policy: the epilogue, L > 8, a block that is not a power of two from
     32 to :data:`MMA_MAX_BK` dividing C, and an OC that 4-byte copies
     cannot tile stay on the tile kernel."""
-    return (out_bits is None and (x_bits is None or x_bits <= 8)
-            and 32 <= bk <= MMA_MAX_BK and bk & (bk - 1) == 0
-            and c % bk == 0 and n % 4 == 0)
+    return (_mma_block(bk, n, out_bits) and (x_bits is None or x_bits <= 8)
+            and c % bk == 0)
 
 
+def patch_core(bk: int, n: int, out_bits: Optional[int], l_i: int,
+               l_w: int) -> bool:
+    """Does an inline-weight conv run on the int8 mma core (after the
+    patch format pass)?  As :func:`mma_core`, with both operands'
+    mantissas int8 (L <= 8) and no condition on C: the patch blocks need
+    not line up with channel chunks."""
+    return _mma_block(bk, n, out_bits) and l_i <= 8 and l_w <= 8
+
+
+@functools.lru_cache(maxsize=1024)
 def mma_tile(m: int, n: int, bk: int) -> int:
     """Index into :data:`MMA_TILES`: the first tile whose grid fills the
     card's SMs, whose width is at most N (or 32) and whose shared memory
@@ -109,12 +143,17 @@ def mma_tile(m: int, n: int, bk: int) -> int:
 
 
 def conv_core(wire_x: bool, prequant_w: bool, bk: int, c: int, n: int,
-              l_i: int, out_bits: Optional[int] = None) -> str:
-    """"mma" or "tile": the core a conv call of this mode runs on."""
-    if prequant_w and mma_core(bk, c, n, out_bits,
-                               None if wire_x else l_i):
-        return "mma"
-    return "tile"
+              l_i: int, out_bits: Optional[int] = None,
+              l_w: Optional[int] = None) -> str:
+    """"mma" or "tile": the core a conv call of this mode runs on.
+    ``l_w`` is the L of float weights quantized in the call (None: the
+    same as ``l_i``)."""
+    if prequant_w:
+        on_mma = mma_core(bk, c, n, out_bits, None if wire_x else l_i)
+    else:
+        on_mma = not wire_x and patch_core(
+            bk, n, out_bits, l_i, l_i if l_w is None else l_w)
+    return "mma" if on_mma else "tile"
 
 
 def bfp_conv2d_plain(x: torch.Tensor, w_hwio: torch.Tensor, l_i: int,
@@ -150,6 +189,23 @@ def bfp_conv2d_xformat_plain(x: torch.Tensor, l_i: int,
     (pixel, ``bk`` channel chunk) with the kernels' block rules ->
     (int8 [B, H, W, C], f32 steps [B, H, W, C // bk])."""
     return requant_plain(x.float(), l_i, bk)
+
+
+def bfp_conv2d_pformat_plain(x: torch.Tensor, w_hwio: torch.Tensor, l_i: int,
+                             l_w: int, bk: int, stride: int = 1,
+                             padding: str = "SAME"):
+    """Plain version of the patch format pass: the im2col patch matrix of
+    f32 NHWC x, zero-padded to Kp = n_k * ``bk``, block-formatted per
+    (row, K-tile), and the float GEMM-view weight per (K-tile, column),
+    with the kernels' block rules -> (int8 [M, Kp], f32 steps [M, n_k],
+    int8 [Kp, OC], f32 steps [n_k, OC])."""
+    kh, kw, c, oc = w_hwio.shape
+    cols, _ = im2col(x.float(), kh, kw, stride, padding)
+    mw, sw = _weights_inline(w_hwio.reshape(kh * kw * c, oc), l_w, bk)
+    n_k = mw.shape[0]
+    xm, xs = requant_plain(_pad_k(cols, n_k * bk, 1), l_i, bk)
+    return (xm, xs, mw.to(torch.int8).reshape(n_k * bk, oc),
+            sw.reshape(n_k, oc))
 
 
 def _wire_patches(xm: torch.Tensor, xs: torch.Tensor, kh: int, kw: int,
@@ -206,6 +262,10 @@ def _lib() -> ctypes.CDLL:
                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 19),
                 (lib.bfp_conv_xformat_launch, [ctypes.c_void_p] * 3 + [
                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int]),
+                (lib.bfp_conv_pformat_launch,
+                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17),
+                (lib.bfp_conv_patch_launch,
+                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 18),
                 (lib.bfp_conv_mma_launch,
                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14)):
             fn.argtypes = args + [ctypes.c_void_p]
@@ -293,6 +353,100 @@ def _launch_mma(xm, xs, wm, ws, bk, stride, padding, name) -> torch.Tensor:
     return out
 
 
+class _Patch:
+    """Geometry of an inline conv's patch matrix [M, Kp] and the byte
+    offsets of the format pass's outputs in one workspace of ``nbytes``
+    that holds ``rows`` patch rows (the route through the core): x
+    mantissas [rows, Kp], x steps [rows, n_k], w mantissas [Kp, OC], w
+    steps [n_k, OC], each on 16 bytes.  ``chunked``: rows * Kp stays
+    within the int32 indexing of the format pass and the core (else
+    rows = M).  Built through :func:`_patch`, once per shape: a served
+    layer pays no Python for it after its first call."""
+
+    def __init__(self, x_shape, w_shape, bk: int, stride: int, padding: str,
+                 chunked: bool = False):
+        b, h, wd, c = x_shape
+        kh, kw, _, oc = w_shape
+        oh, ow, (pt, _), (pl, _) = conv_geometry(h, wd, kh, kw, stride,
+                                                 padding)
+        self.m, self.n_k = b * oh * ow, -(-kh * kw * c // bk)
+        self.kp = self.n_k * bk
+        self.out_shape = (b, oh, ow, oc)
+        self.dims = (h, wd, c, kh, kw, oc, stride, oh, ow, pt, pl)
+        self.rows = min(self.m, _INT_MAX // self.kp) if chunked else self.m
+        offsets, off = [], 0
+        for size in (self.rows * self.kp, 4 * self.rows * self.n_k,
+                     self.kp * oc, 4 * self.n_k * oc):
+            offsets.append(off)
+            off += -(-size // 16) * 16
+        self.offsets, self.nbytes = tuple(offsets), off
+
+    def check(self, x: torch.Tensor) -> None:
+        """The format pass's and the core's indices are 32-bit."""
+        if max(x.numel(), self.rows * self.kp,
+               self.kp * self.out_shape[3]) > _INT_MAX:
+            raise ValueError(f"conv {tuple(x.shape)} -> "
+                             f"{self.out_shape} exceeds the kernels' int32 "
+                             f"indexing")
+
+
+@functools.lru_cache(maxsize=1024)
+def _patch(x_shape, w_shape, bk: int, stride: int, padding: str,
+           chunked: bool) -> _Patch:
+    return _Patch(x_shape, w_shape, bk, stride, padding, chunked)
+
+
+def _launch_pformat(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
+                    bk: int, stride: int, padding: str):
+    """The patch format pass alone, every row in one launch -> the four
+    tensors of :func:`bfp_conv2d_pformat_plain`."""
+    x, w = _aligned(x.float().contiguous()), w.float().contiguous()
+    dev = _check_cuda(x, w)
+    geo = _patch(x.shape, w.shape, bk, stride, padding, False)
+    geo.check(x)
+    oc = geo.out_shape[3]
+    outs = tuple(torch.empty(shape, dtype=dt, device=dev) for dt, shape in (
+        (torch.int8, (geo.m, geo.kp)), (torch.float32, (geo.m, geo.n_k)),
+        (torch.int8, (geo.kp, oc)), (torch.float32, (geo.n_k, oc))))
+    if geo.m and oc:
+        with _on(dev):
+            _raise_on(_lib().bfp_conv_pformat_launch(
+                x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in outs),
+                0, geo.m, 1, *geo.dims, bk, l_i, l_w, _stream(dev)),
+                "bfp_conv2d_pformat")
+        LAUNCHES["bfp_conv2d_pformat"] += 1
+    return outs
+
+
+def _launch_patch(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
+                  bk: int, stride: int, padding: str) -> torch.Tensor:
+    """The inline conv on the mma core: per chunk of patch rows, one host
+    call that launches the patch format pass (the weight too in the first
+    chunk) and the core as a 1x1 conv over the chunk's patch matrix
+    [1, rows, 1, Kp] -> f32 NHWC.  Rows are chunked only where rows * Kp
+    would pass the int32 indexing (never at the served batch of 8)."""
+    x, w = _aligned(x.float().contiguous()), w.float().contiguous()
+    geo = _patch(x.shape, w.shape, bk, stride, padding, True)
+    geo.check(x)
+    dev = _check_cuda(x, w)
+    out = torch.empty(geo.out_shape, dtype=torch.float32, device=dev)
+    oc = geo.out_shape[3]
+    if not geo.m or not oc:
+        return out
+    ws = torch.empty(geo.nbytes, dtype=torch.uint8, device=dev)
+    ptrs = [ws.data_ptr() + o for o in geo.offsets]
+    with _on(dev):
+        for row0 in range(0, geo.m, geo.rows):
+            rows = min(geo.rows, geo.m - row0)
+            _raise_on(_lib().bfp_conv_patch_launch(
+                x.data_ptr(), w.data_ptr(), *ptrs, out.data_ptr(), row0,
+                rows, int(row0 == 0), *geo.dims, bk, l_i, l_w,
+                mma_tile(rows, oc, bk), _stream(dev)), "bfp_conv2d")
+            LAUNCHES["bfp_conv2d_pformat"] += 1
+            LAUNCHES["bfp_conv2d"] += 1
+    return out
+
+
 def _launch(x, xs, w, ws, l_i, l_w, bk, stride, padding, out_bits,
             out_block, name) -> Out:
     b, h, wd, c = x.shape
@@ -361,9 +515,31 @@ def bfp_conv2d(x: torch.Tensor, w_hwio: torch.Tensor, *, l_i: int, l_w: int,
     if x.device.type == "cpu":
         return bfp_conv2d_plain(x, w_hwio, l_i, l_w, bk, stride, padding,
                                 out_bits, out_block)
+    if patch_core(bk, w_hwio.shape[3], out_bits, l_i, l_w):
+        return _launch_patch(x, w_hwio, l_i, l_w, bk, stride, padding)
     return _launch(x.float().contiguous(), None, w_hwio.float().contiguous(),
                    None, l_i, l_w, bk, stride, padding, out_bits, out_block,
                    "bfp_conv2d")
+
+
+def bfp_conv2d_pformat(x: torch.Tensor, w_hwio: torch.Tensor, *, l_i: int,
+                       l_w: int, bk: int, stride: int = 1,
+                       padding: str = "SAME"):
+    """The patch format pass of the inline conv on its own: f32 NHWC x and
+    float HWIO w -> (int8 patch mantissas [M, Kp], f32 steps [M, n_k],
+    int8 weight mantissas [Kp, OC], f32 steps [n_k, OC]), one block per
+    (patch row, K-tile) and per (K-tile, column), the tile kernel's block
+    rules; Kp = n_k * ``bk``."""
+    _check_geometry(x, w_hwio.shape, stride)
+    if not (32 <= bk <= MMA_MAX_BK and bk & (bk - 1) == 0
+            and 2 <= l_i <= 8 and 2 <= l_w <= 8):
+        raise ValueError(f"patch format pass needs a power-of-two bk from 32 "
+                         f"to {MMA_MAX_BK} and L <= 8 (int8 mantissas), got "
+                         f"bk={bk}, L={l_i}/{l_w}")
+    if x.device.type == "cpu":
+        return bfp_conv2d_pformat_plain(x, w_hwio, l_i, l_w, bk, stride,
+                                        padding)
+    return _launch_pformat(x, w_hwio, l_i, l_w, bk, stride, padding)
 
 
 def bfp_conv2d_prequant(x: torch.Tensor, wm_hwio: torch.Tensor,

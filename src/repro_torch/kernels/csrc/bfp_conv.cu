@@ -1,8 +1,11 @@
 // BFP convolution for Hopper (sm_90a).  Two cores share this library:
 // the weight-prequant modes with f32 output run on the int8 mma.sync core
 // of bfp_mma.cuh after its activation format pass (bfp_conv_xformat_launch,
-// bfp_conv_mma_launch; that header's note states its design); every
-// other conv mode runs on the tile kernel, as follows.
+// bfp_conv_mma_launch; that header's note states its design), and so does
+// the inline-weight conv with f32 output, after the patch format pass of
+// bfp_pformat.cuh (bfp_conv_patch_launch: the pass, then the core as a
+// 1x1 conv over the patch matrix); every other conv mode runs on the tile
+// kernel, as follows.
 //
 // Fused implicit-im2col BFP convolution on the tile kernel:
 // NHWC x [B, H, W, C] (*) HWIO w [KH, KW, C, OC] -> f32 [B, OH, OW, OC],
@@ -28,15 +31,16 @@
 // are operations-bound.  The tile kernel runs __dp4a on the CUDA cores
 // and gathers every receptive-field element from global memory
 // (L2-resident) once or twice per output-channel tile, so it sits far
-// above either bound.  The weight-prequant modes with an f32 output left
-// it for the mma core (x formatted once per pixel chunk, int8 tensor
-// cores); the inline and x-prequant convs and the epilogue are still to
-// move.
+// above either bound.  The convs with an f32 output left it for the mma
+// core (x formatted once per pixel chunk or per patch block, int8 tensor
+// cores); the x-prequant conv with float weights, the epilogue and
+// L > 8 are still on it.
 //
 // Padding is never materialized: an output pixel's receptive field
 // starts at (oh*S - PT, ow*S - PL) and reads outside the input are zero
 // (SAME or VALID geometry, any stride and kernel size, from the caller).
 #include "bfp_mma.cuh"
+#include "bfp_pformat.cuh"
 #include "bfp_tile.cuh"
 
 // Block-format an f32 NHWC activation per (pixel, bk channel chunk):
@@ -49,6 +53,100 @@ extern "C" int bfp_conv_xformat_launch(const void* x, void* xm, void* xs,
                                  static_cast<int8_t*>(xm),
                                  static_cast<float*>(xs), n_chunks, bk, bits,
                                  static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+bfp_pformat::Params pformat_params(const void* x, const void* w, void* xm,
+                                   void* xs, void* wm, void* ws, int row0,
+                                   int rows, int with_w, int H, int W, int C,
+                                   int KH, int KW, int OC, int stride,
+                                   int OH, int OW, int pad_top, int pad_left,
+                                   int bk, int l_i, int l_w) {
+  bfp_pformat::Params p = {};
+  p.x = static_cast<const float*>(x);
+  p.w = static_cast<const float*>(w);
+  p.xm = static_cast<int8_t*>(xm);
+  p.xs = static_cast<float*>(xs);
+  p.wm = static_cast<int8_t*>(wm);
+  p.ws = static_cast<float*>(ws);
+  p.row0 = row0;
+  p.rows = rows;
+  p.with_w = with_w;
+  p.K = KH * KW * C;
+  p.N = OC;
+  p.bk = bk;
+  p.l_i = l_i;
+  p.l_w = l_w;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.KW = KW;
+  p.S = stride;
+  p.OHW = OH * OW;
+  p.OW = OW;
+  p.PT = pad_top;
+  p.PL = pad_left;
+  return p;
+}
+
+}  // namespace
+
+// The patch format pass alone: patch rows [row0, row0 + rows) of the f32
+// NHWC x -> int8 [rows, Kp] + f32 steps [rows, n_k]; with with_w, the f32
+// GEMM-view weight [K, OC] -> int8 [Kp, OC] + f32 steps [n_k, OC].
+extern "C" int bfp_conv_pformat_launch(const void* x, const void* w,
+                                       void* xm, void* xs, void* wm,
+                                       void* ws, int row0, int rows,
+                                       int with_w, int H, int W, int C,
+                                       int KH, int KW, int OC, int stride,
+                                       int OH, int OW, int pad_top,
+                                       int pad_left, int bk, int l_i,
+                                       int l_w, void* stream) {
+  return bfp_pformat::launch(
+      pformat_params(x, w, xm, xs, wm, ws, row0, rows, with_w, H, W, C, KH,
+                     KW, OC, stride, OH, OW, pad_top, pad_left, bk, l_i,
+                     l_w),
+      static_cast<cudaStream_t>(stream));
+}
+
+// The inline conv with an f32 output on the mma core, for patch rows
+// [row0, row0 + rows): the patch format pass into xm/xs (and wm/ws when
+// with_w), then the core as a 1x1 conv over [1, rows, 1, Kp] into rows
+// [row0, row0 + rows) of out [M, OC].  Two launches, one host call.
+extern "C" int bfp_conv_patch_launch(const void* x, const void* w, void* xm,
+                                     void* xs, void* wm, void* ws, void* out,
+                                     int row0, int rows, int with_w, int H,
+                                     int W, int C, int KH, int KW, int OC,
+                                     int stride, int OH, int OW, int pad_top,
+                                     int pad_left, int bk, int l_i, int l_w,
+                                     int tile, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc = bfp_pformat::launch(
+      pformat_params(x, w, xm, xs, wm, ws, row0, rows, with_w, H, W, C, KH,
+                     KW, OC, stride, OH, OW, pad_top, pad_left, bk, l_i,
+                     l_w),
+      s);
+  if (rc) return rc;
+  const int kp = (KH * KW * C + bk - 1) / bk * bk;
+  bfp_mma::ConvParams p = {};
+  p.xm = static_cast<const int8_t*>(xm);
+  p.xs = static_cast<const float*>(xs);
+  p.wm = static_cast<const int8_t*>(wm);
+  p.ws = static_cast<const float*>(ws);
+  p.out = static_cast<float*>(out) + (long long)row0 * OC;
+  p.M = rows;
+  p.N = OC;
+  p.K = kp;
+  p.bk = bk;
+  p.H = rows;
+  p.W = 1;
+  p.C = kp;
+  p.KW = 1;
+  p.S = 1;
+  p.OH = rows;
+  p.OW = 1;
+  return bfp_mma::launch_conv(p, tile, s);
 }
 
 // The conv with both operands in the wire format (x: the format pass's

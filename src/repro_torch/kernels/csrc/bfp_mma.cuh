@@ -6,11 +6,13 @@
 // (repro/kernels/bfp_conv.py:94, :219): bfp_conv2d_prequant_pallas (f32
 // NHWC x, w as int8 mantissas + f32 steps) and
 // bfp_conv2d_xwprequant_pallas with an f32 output (both operands in the
-// wire format).  Everything else (inline weights, the x-prequant conv
-// with float weights, the requantize epilogue, L > 8, a block that is not
-// a multiple of 32, every matmul) stays on the tile kernel of
-// bfp_tile.cuh; the wrapper (kernels/bfp_conv.py, mma_core) picks the
-// core from shape and policy alone.
+// wire format).  The inline-weight conv with an f32 output
+// (bfp_conv2d_pallas) runs this core too, as a 1x1 conv over the patch
+// matrix that bfp_pformat.cuh formats.  Everything else (the x-prequant
+// conv with float weights, the requantize epilogue, L > 8, a block that
+// is not a power of two from 32 to 512, every matmul) stays on the tile
+// kernel of bfp_tile.cuh; the wrapper (kernels/bfp_conv.py, conv_core)
+// picks the core from shape and policy alone.
 //
 // Arithmetic (bit-identical to the tile kernel and to kernels/ref.py):
 //   out[r, n] = sum over K-tiles t = 0 .. n_k-1, in order, of

@@ -2,7 +2,10 @@
 ``repro.kernels.ops``).
 
 They turn a ``BFPPolicy`` (and a prequant sidecar) into the kernel's
-block size and mantissa widths and check the wire format.  The CUDA
+block size and mantissa widths and check the wire format.  A policy
+with ``block_k=None`` takes ``repro``'s defaults: whole-K (kh*kw*C) for
+a conv, ``tune.tables.fallback_block_k`` for a GEMM; a
+whole-K block over the int32 overflow guard raises.  The CUDA
 kernels mask ragged rows, columns and K themselves and choose their own
 thread-block tiles, so no operand is padded here; on the CPU the plain
 versions zero-pad K to a block multiple exactly as ``repro`` does.
@@ -34,20 +37,12 @@ from repro_torch.core.prequant import act_block, is_prequant, prequant_act
 from repro_torch.kernels import bfp_conv as KC
 from repro_torch.kernels import bfp_matmul as KM
 from repro_torch.kernels import bfp_quantize as KQ
-from repro_torch.tune.tables import aligned_tile
+from repro_torch.tune.tables import aligned_tile, fallback_block_k
 
 __all__ = ["bfp_matmul", "bfp_matmul_prequant", "bfp_conv2d",
            "bfp_conv2d_prequant", "bfp_quantize"]
 
 ActOrTensor = Union[torch.Tensor, dict]
-
-
-def _policy_block(policy: BFPPolicy) -> int:
-    # No tune cache or fallback tile table is ported yet, so the block
-    # must come from the policy (the "cuda" backend refuses None too).
-    if policy.block_k is None:
-        raise ValueError("the BFP kernels need policy.block_k (Scheme.TILED)")
-    return policy.block_k
 
 
 def _sidecar_block(k: int, ws: torch.Tensor, policy: BFPPolicy) -> int:
@@ -105,7 +100,8 @@ def bfp_matmul(x2d: ActOrTensor, w: torch.Tensor, policy: BFPPolicy, *,
         kw["bk"] = _act_pin(x2d, policy)
         return _run(KM.bfp_matmul_xprequant, (x2d["m"], x2d["s"], w), kw,
                     out_policy, n)
-    kw["bk"] = _policy_block(policy)
+    kw["bk"] = fallback_block_k(x2d.shape[1], policy.block_k,
+                                policy.l_w + policy.l_i)
     return _run(KM.bfp_matmul, (x2d, w), kw, out_policy, n)
 
 
@@ -140,8 +136,8 @@ def bfp_conv2d(x: ActOrTensor, w_hwio: torch.Tensor, policy: BFPPolicy,
                stride: int = 1, padding: str = "SAME", *,
                out_policy: Optional[BFPPolicy] = None) -> Any:
     """NHWC conv (float x or its wire format) through the implicit-im2col
-    kernel (Scheme.TILED); the block is ``policy.block_k``, or a wire
-    x's own block."""
+    kernel (Scheme.TILED); the block is ``policy.block_k``, else a wire
+    x's own block, else whole-K."""
     kw = dict(l_i=policy.l_i, l_w=policy.l_w, stride=stride,
               padding=padding)
     oc = w_hwio.shape[3]
@@ -151,7 +147,8 @@ def bfp_conv2d(x: ActOrTensor, w_hwio: torch.Tensor, policy: BFPPolicy,
         kw["bk"] = bk
         return _run(KC.bfp_conv2d_xprequant, (x["m"], x["s"], w_hwio), kw,
                     out_policy, oc)
-    kw["bk"] = _policy_block(policy)
+    kh, kw_, c, _ = w_hwio.shape
+    kw["bk"] = policy.block_k or kh * kw_ * c
     return _run(KC.bfp_conv2d, (x, w_hwio), kw, out_policy, oc)
 
 

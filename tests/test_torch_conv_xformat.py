@@ -167,8 +167,10 @@ def test_core_choice_is_a_pure_function_of_shape_and_policy():
     # the served prequant convs: block 128 divides C, f32 out, L 8
     assert KC.conv_core(False, True, 128, 512, 512, 8) == "mma"
     assert KC.conv_core(True, True, 128, 256, 256, 8) == "mma"
+    # the inline conv, after its patch format pass (no bk | C needed)
+    assert KC.conv_core(False, False, 128, 512, 512, 8) == "mma"
+    assert KC.conv_core(False, False, 128, 64, 512, 8) == "mma"
     # what stays on the tile kernel
-    assert KC.conv_core(False, False, 128, 512, 512, 8) == "tile"  # inline
     assert KC.conv_core(True, False, 128, 512, 512, 8) == "tile"   # x-pq
     assert KC.conv_core(False, True, 128, 512, 512, 8, 8) == "tile"  # epi
     assert KC.conv_core(False, True, 128, 512, 512, 12) == "tile"  # WIDE

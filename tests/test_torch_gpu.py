@@ -231,6 +231,44 @@ def test_cuda_mma_core_and_format_pass_match_plain_versions(cuda):
     torch.cuda.synchronize()
 
 
+# (B, H, W, C, kernel, stride, padding, OC, bk, L): the inline conv on
+# the mma core at ragged shapes (M and OC not tile multiples, K-tiles
+# spanning taps and wholly outside the image)
+PATCH_CASES = [(3, 9, 7, 3, 7, 2, "SAME", 20, 32, 8),
+               (2, 11, 5, 48, 3, 1, "VALID", 36, 128, 4)]
+
+
+@pytest.mark.gpu
+def test_cuda_patch_format_and_inline_conv_match_plain_versions(cuda):
+    """The patch format pass and the inline conv it feeds to the mma core
+    against their plain versions on the card, bit-equal: zero, NaN, inf
+    and subnormal pixels, an inf weight; the inline conv launches one
+    format pass and one core launch."""
+    for case in PATCH_CASES:
+        b, h, wd, c, kk, s, pad, oc, bk, L = case
+        assert KC.conv_core(False, False, bk, c, oc, L, None, L) == "mma"
+        x = t(normal((b, h, wd, c), seed=c + oc)).to(cuda)
+        x[1] = 1e-40 * torch.sign(x[1])
+        x[0, 0, 0, :] = 0.0
+        x[0, 0, 1, 0] = float("nan")
+        x[0, h - 1, wd - 1, c - 1] = float("inf")
+        w = t(normal((kk, kk, c, oc), seed=oc, scale=0.05)).to(cuda)
+        w[0, 0, 0, 1] = float("inf")
+        got = KC.bfp_conv2d_pformat(x, w, l_i=L, l_w=L, bk=bk, stride=s,
+                                    padding=pad)
+        want = KC.bfp_conv2d_pformat_plain(x, w, L, L, bk, s, pad)
+        for g, v in zip(got, want):
+            assert torch.equal(_bits(g), _bits(v)), case
+        K.reset_launch_counts()
+        out = KC.bfp_conv2d(x, w, l_i=L, l_w=L, bk=bk, stride=s, padding=pad)
+        counts = K.launch_counts()
+        assert counts["bfp_conv2d_pformat"] == 1 and \
+            counts["bfp_conv2d"] == 1, (case, counts)
+        _both_equal(out, KC.bfp_conv2d_plain(x, w, L, L, bk, s, pad),
+                    ("inline", case))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_cuda_chain_on_the_wire_equals_the_float_chain(cuda):
     """Through the engine on the card: each producer's fused epilogue
@@ -275,7 +313,13 @@ def test_served_vgg16_on_the_card_equals_the_cpu(cuda, bk):
         assert eng.stats["completed"] == 3 and eng.stats["failed"] == 0
         logits[str(dev)] = torch.stack([torch.from_numpy(r.logits)
                                         for r in reqs])
-    assert sum(K.launch_counts().values()) == 16 * eng.ncalls
+    # one launch of a conv or matmul core per layer; an inline conv on the
+    # mma core (block 128) adds one patch format pass
+    counts = K.launch_counts()
+    assert sum(counts.values()) - counts["bfp_conv2d_pformat"] == \
+        16 * eng.ncalls
+    assert counts["bfp_conv2d_pformat"] == (13 * eng.ncalls if bk == 128
+                                            else 0)
     assert torch.equal(logits["cpu"], logits["cuda"])
 
 

@@ -191,11 +191,14 @@ def test_wrappers_check_the_wire_format():
         pops.bfp_matmul_prequant(x, torch.ones(32, 4, dtype=torch.int8),
                                  torch.ones(4, 4),
                                  TPU_TILED.with_(block_k=16))
-    with pytest.raises(ValueError, match="policy.block_k"):
-        pops.bfp_matmul(x, torch.ones(32, 4), TPU_TILED.with_(block_k=None))
-    with pytest.raises(ValueError, match="policy.block_k"):
-        pops.bfp_conv2d(torch.ones(1, 4, 4, 3), torch.ones(3, 3, 3, 2),
-                        TPU_TILED.with_(block_k=None))
+    # block_k=None: repro's defaults (the fallback K tile for a GEMM,
+    # whole-K for a conv); a whole-K block over the int32 guard raises
+    assert torch.equal(
+        pops.bfp_matmul(x, torch.ones(32, 4), TPU_TILED.with_(block_k=None)),
+        KM.bfp_matmul_plain(x, torch.ones(32, 4), 8, 8, 32))
+    with pytest.raises(ValueError, match="overflows int32"):
+        pops.bfp_conv2d(torch.ones(1, 4, 4, 64), torch.ones(3, 3, 64, 2),
+                        TPU_TILED.with_(block_k=None, l_i=12, l_w=12))
 
 
 def test_cpu_tensors_take_the_plain_version(monkeypatch):
