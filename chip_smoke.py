@@ -20,17 +20,24 @@ raises (and so exits non-zero) when it fails:
    832, N = 16..192, blocks 32/128/512, L 4/8, and at a ragged shape
    with zero, NaN, inf and subnormal pixels, K-tiles wholly outside the
    image and an inf weight; and one conv whose policy names no block
-   (``ops.bfp_conv2d``, whole-K);
+   (``ops.bfp_conv2d``, whole-K); the f32-output matmuls on the mma core
+   as 1x1 convs (each with its format pass alone) at VGG16 fc6-8,
+   ResNet-50's fc and GoogLeNet's loss fc1, at M = 1 and 17, blocks 32,
+   128 and 512, L 4 and 8, inline at K = 64, 4096 and a ragged 2047,
+   with zero, NaN, inf and subnormal rows and an inf weight, and reduced
+   VGG16's fc8 (N = 10) on the tile kernel;
 4. the main path: full-width VGG16 (224x224x3, 1000 classes, seeded
    random weights) bound with ``PALLAS_TILED`` (strict, prequantized) and
    served through ``CnnServeEngine`` — 16 requests, no failures, no float
    retries, 3 inline-conv (each one patch format pass and one mma-core
    launch) / 10 prequant-conv (each one format pass and one mma-core
-   launch) / 3 prequant-matmul launches per forward, logits bit-equal to
-   a direct ``apply`` and to a forward through a backend made of the
-   plain versions.  The reduced VGG16 of the model registry is served
-   the same way: its 13 convs inline on the mma core, its FC layers
-   (K = 64) on the inline-weight matmul kernel;
+   launch) / 3 prequant-matmul (each one format pass and one mma-core
+   launch) launches per forward, logits bit-equal to a direct ``apply``
+   and to a forward through a backend made of the plain versions.  The
+   reduced VGG16 of the model registry is served the same way: its 13
+   convs inline on the mma core, its fc6 and fc7 (K = 64) inline on the
+   mma core after a patch format pass each, its fc8 (N = 10) on the tile
+   kernel;
 5. CUDA-event times of each kernel and its plain version at the phase-3
    shapes and at every layer of one batch-8 forward of each path (each
    layer also checked bit-equal to its plain version, with its bound and
@@ -86,10 +93,11 @@ raises (and so exits non-zero) when it fails:
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
    layers that run it, per batch-8 forward (per chain run for the
    wire-format kernels, per formatting of ResNet-50 for
-   ``bfp_quantize``).  ``bfp_conv2d_prequant``'s and ``bfp_conv2d``'s
-   ms are their wrappers': the format pass and the core;
-   ``bfp_conv2d_xformat``'s and ``bfp_conv2d_pformat``'s rows are the
-   format passes alone.
+   ``bfp_quantize``).  ``bfp_conv2d_prequant``'s, ``bfp_conv2d``'s and
+   the two f32 matmuls' ms are their wrappers': the format pass and the
+   core; the ``*_xformat`` and ``*_pformat`` rows are the format passes
+   alone.  A matmul row's ``source`` is the file of the core its path
+   ran (``sources_by_core`` names both).
 """
 from __future__ import annotations
 
@@ -113,8 +121,12 @@ INT8_OPS_PER_S = 1979e12
 
 _MM_CU = "src/repro_torch/kernels/csrc/bfp_matmul.cu"
 _CONV_CU = "src/repro_torch/kernels/csrc/bfp_conv.cu"
-SOURCES = {"bfp_matmul": _MM_CU, "bfp_matmul_prequant": _MM_CU,
+#: a kernel's source, or for the f32-output matmuls one per core: the mma
+#: core's route is in bfp_conv.cu, the tile kernel's in bfp_matmul.cu
+_MM_BOTH = {"mma": _CONV_CU, "tile": _MM_CU}
+SOURCES = {"bfp_matmul": _MM_BOTH, "bfp_matmul_prequant": _MM_BOTH,
            "bfp_matmul_xprequant": _MM_CU, "bfp_matmul_xwprequant": _MM_CU,
+           "bfp_matmul_xformat": _CONV_CU, "bfp_matmul_pformat": _CONV_CU,
            "bfp_conv2d": _CONV_CU, "bfp_conv2d_prequant": _CONV_CU,
            "bfp_conv2d_xprequant": _CONV_CU, "bfp_conv2d_xwprequant": _CONV_CU,
            "bfp_conv2d_xformat": _CONV_CU, "bfp_conv2d_pformat": _CONV_CU,
@@ -123,6 +135,11 @@ REPLACES = {"bfp_matmul": "src/repro/kernels/bfp_matmul.py:362",
             "bfp_matmul_prequant": "src/repro/kernels/bfp_matmul.py:388",
             "bfp_matmul_xprequant": "src/repro/kernels/bfp_matmul.py:419",
             "bfp_matmul_xwprequant": "src/repro/kernels/bfp_matmul.py:448",
+            # load_x (and load_w) in _make_matmul_kernel, which the
+            # prequant (inline) matmul now formats once per row block
+            # (and weight block) before the mma core
+            "bfp_matmul_xformat": "src/repro/kernels/bfp_matmul.py:216",
+            "bfp_matmul_pformat": "src/repro/kernels/bfp_matmul.py:216",
             "bfp_conv2d": "src/repro/kernels/bfp_conv.py:278",
             "bfp_conv2d_prequant": "src/repro/kernels/bfp_conv.py:304",
             "bfp_conv2d_xprequant": "src/repro/kernels/bfp_conv.py:332",
@@ -161,38 +178,46 @@ CHAIN_STAGES = (("conv2_1", "conv2_2"), ("conv3_1", "conv3_2", "conv3_3"),
 #: 19; the five GEMMs (fc, loss1|2/fc1|fc2: K 1024 or 2048) prequant.
 #: Every prequant conv (block 128 | C, OC a multiple of 4, f32 out) runs
 #: the int8 mma core after one activation format pass, and every inline
-#: conv (OC a multiple of 4, f32 out) after one patch format pass.
+#: conv (OC a multiple of 4, f32 out) after one patch format pass; so
+#: does every prequant GEMM (N a multiple of 4, f32 out), as a 1x1 conv
+#: after one activation format pass of its own counter.
 MODEL_LAUNCHES = {
     "resnet50_full": {"bfp_conv2d": 9, "bfp_conv2d_pformat": 9,
                       "bfp_conv2d_prequant": 44, "bfp_conv2d_xformat": 44,
-                      "bfp_matmul_prequant": 1},
+                      "bfp_matmul_prequant": 1, "bfp_matmul_xformat": 1,
+                      "bfp_matmul_pformat": 0},
     "resnet18_full": {"bfp_conv2d": 7, "bfp_conv2d_pformat": 7,
                       "bfp_conv2d_prequant": 13, "bfp_conv2d_xformat": 13,
-                      "bfp_matmul_prequant": 1},
+                      "bfp_matmul_prequant": 1, "bfp_matmul_xformat": 1,
+                      "bfp_matmul_pformat": 0},
     "googlenet_full": {"bfp_conv2d": 40, "bfp_conv2d_pformat": 40,
                        "bfp_conv2d_prequant": 19, "bfp_conv2d_xformat": 19,
-                       "bfp_matmul_prequant": 5}}
+                       "bfp_matmul_prequant": 5, "bfp_matmul_xformat": 5,
+                       "bfp_matmul_pformat": 0}}
 #: the format passes of the mma core, timed alone as rows of their own
 #: beside the layer whose time includes them
-FORMAT_PASSES = ("bfp_conv2d_xformat", "bfp_conv2d_pformat")
+FORMAT_PASSES = ("bfp_conv2d_xformat", "bfp_conv2d_pformat",
+                 "bfp_matmul_xformat", "bfp_matmul_pformat")
 #: offline formatting of ResNet-50: one launch per prequantized weight
 FORMAT_LAUNCHES = {"bfp_quantize": 45}
 #: (M, K, bk, bits) of the phase-7 checks: ragged M and K, blocks 32, 128
 #: and 512, L 4 and 8 (rows 0-4 of each carry the hazard blocks)
 Q_SHAPES = ((1000, 2047, 128, 8), (37, 300, 32, 4), (512, 4608, 512, 8),
             (2049, 1153, 128, 8), (64, 147, 32, 8), (300, 96, 512, 4))
-#: every inline conv in the chains runs the epilogue, so on the tile
-#: kernel: no patch format pass
+#: every inline conv in the chains, and every matmul that takes f32 x
+#: (fc6), runs the epilogue, so on the tile kernel: no format pass
 CHAIN_LAUNCHES = {
     "chain_A": {"bfp_conv2d": 1, "bfp_conv2d_pformat": 0,
                 "bfp_conv2d_prequant": 3,
                 "bfp_conv2d_xwprequant": 7, "bfp_matmul_prequant": 1,
                 "bfp_matmul_xwprequant": 2, "bfp_conv2d_epilogue": 7,
-                "bfp_matmul_epilogue": 2},
+                "bfp_matmul_epilogue": 2, "bfp_matmul_xformat": 0,
+                "bfp_matmul_pformat": 0},
     "chain_B": {"bfp_conv2d": 4, "bfp_conv2d_pformat": 0,
                 "bfp_conv2d_xprequant": 7,
                 "bfp_matmul": 1, "bfp_matmul_xprequant": 2,
-                "bfp_conv2d_epilogue": 7, "bfp_matmul_epilogue": 2}}
+                "bfp_conv2d_epilogue": 7, "bfp_matmul_epilogue": 2,
+                "bfp_matmul_xformat": 0, "bfp_matmul_pformat": 0}}
 
 
 def fail(msg: str) -> None:
@@ -380,22 +405,41 @@ def main() -> int:
                               x, w, L, L, cbk, stride, padding), x, (w,),
                           m, oc, 0, core))
 
-    def mm_case(label, path, x, w, prequant):
+    def mm_case(label, path, x, w, prequant, mbk=bk, L=8):
+        (m, k), n = x.shape, w.shape[1]
+        core = KM.matmul_core(prequant, mbk, k, n, L, L)
+        # the matmul as the core runs it: the 1x1 conv over [1, M, 1, K]
+        x4 = x.reshape(1, m, 1, k)
         if prequant:
-            d = prequant_leaf(w, pol)
+            d = prequant_leaf(w, pol.with_(block_k=mbk))
             parts = (d["m"], d["s"])
             call = lambda: KM.bfp_matmul_prequant(  # noqa: E731
-                x, d["m"], d["s"], l_i=8, l_w=8, bk=bk)
+                x, d["m"], d["s"], l_i=L, l_w=8, bk=mbk)
             plain = lambda: KM.bfp_matmul_prequant_plain(  # noqa: E731
-                x, d["m"], d["s"], 8, 8, bk)
+                x, d["m"], d["s"], L, 8, mbk)
         else:
             parts = (w,)
-            call = lambda: KM.bfp_matmul(x, w, l_i=8, l_w=8,  # noqa: E731
-                                         bk=bk)
-            plain = lambda: KM.bfp_matmul_plain(x, w, 8, 8, bk)  # noqa: E731
+            call = lambda: KM.bfp_matmul(x, w, l_i=L, l_w=L,  # noqa: E731
+                                         bk=mbk)
+            plain = lambda: KM.bfp_matmul_plain(x, w, L, L,  # noqa: E731
+                                                mbk)
         name = "bfp_matmul_prequant" if prequant else "bfp_matmul"
-        cases.append((label, path, name, call, plain, x, parts, x.shape[0],
-                      w.shape[1], w.shape[0], "tile"))
+        cases.append((label, path, name, call, plain, x, parts, m, n, k,
+                      core))
+        if core == "mma" and prequant:   # its format pass, alone
+            cases.append((label, path, "bfp_matmul_xformat",
+                          lambda: KC.bfp_conv2d_xformat(x4, l_i=L, bk=mbk),
+                          lambda: KC.bfp_conv2d_xformat_plain(x4, L, mbk),
+                          x, (), x.numel() // mbk, mbk, 0, core))
+        elif core == "mma":              # its patch format pass, alone
+            w4 = w.reshape(1, 1, k, n)
+            cases.append((label, path, "bfp_matmul_pformat",
+                          lambda: KC.bfp_conv2d_pformat(
+                              x4, w4, l_i=L, l_w=L, bk=mbk, stride=1,
+                              padding="VALID"),
+                          lambda: KC.bfp_conv2d_pformat_plain(
+                              x4, w4, L, L, mbk, 1, "VALID"), x, (w,),
+                          m, n, 0, core))
 
     b, full_p, red_p = 8, "vgg16_full", "vgg16_reduced"
     conv_case("conv1_1", full_p, rnd(b, 224, 224, 3),
@@ -456,14 +500,45 @@ def main() -> int:
     xh[2, 6, 6, :bk] = 1e-40
     conv_case("ragged_M27", "off_path", xh, rnd(3, 3, 256, 40, scale=0.03),
               2, True, "VALID")
+    # the f32-output matmuls on the mma core as 1x1 convs: VGG16 fc6-8,
+    # ResNet-50's fc, GoogLeNet's loss fc1; M = 1 and 17, blocks 32, 128
+    # and 512, L 4 and 8; inline at K = 64 and at a ragged K; hazard rows
+    # (a zero block, NaN, inf, a subnormal row; an inf weight inline)
     mm_case("fc6", full_p, rnd(b, 25088, relu=True),
             rnd(25088, 4096, scale=0.009), True)
+    mm_case("fc7", full_p, rnd(b, 4096, relu=True),
+            rnd(4096, 4096, scale=0.02), True)
     mm_case("fc8", full_p, rnd(b, 4096, relu=True),
             rnd(4096, 1000, scale=0.02), True)
+    mm_case("r50_fc", "resnet50_full", rnd(b, 2048, relu=True),
+            rnd(2048, 1000, scale=0.03), True)
+    mm_case("gn_loss_fc1", gn_p, rnd(b, 2048, relu=True),
+            rnd(2048, 1024, scale=0.03), True)
+    mm_case("fc6_M1_bk512", "off_path", rnd(1, 25088, relu=True),
+            rnd(25088, 4096, scale=0.009), True, mbk=512, L=4)
+    mm_case("fc8_M17_bk32", "off_path", rnd(17, 4096, relu=True),
+            rnd(4096, 1000, scale=0.02), True, mbk=32, L=4)
     mm_case("fc6_reduced", red_p, rnd(b, 64, relu=True),
             rnd(64, 64, scale=0.18), False)
+    mm_case("fc8_reduced", red_p, rnd(b, 64, relu=True),
+            rnd(64, 10, scale=0.18), False)
     mm_case("fc7_inline", "off_path", rnd(b, 4096, relu=True),
             rnd(4096, 4096, scale=0.02), False)
+
+    def hazard_rows(x, hbk):
+        x[0, :hbk] = 0.0
+        x[1, 3] = float("nan")
+        x[2, -1] = float("inf")
+        x[3] = 1e-40 * torch.sign(x[3])
+        return x
+
+    mm_case("ragged_pq_M17", "off_path",
+            hazard_rows(rnd(17, 1536, relu=True), 512),
+            rnd(1536, 36, scale=0.03), True, mbk=512)
+    wh = rnd(2047, 44, scale=0.03)
+    wh[700, 1] = float("inf")
+    mm_case("ragged_K2047", "off_path",
+            hazard_rows(rnd(17, 2047, relu=True), 32), wh, False, mbk=32)
 
     def nan_bits(a):    # NaN-aware bit patterns (hazard inputs make NaN)
         a = a if isinstance(a, tuple) else (a,)
@@ -590,14 +665,14 @@ def main() -> int:
         full_p, full_params, 224,
         {"bfp_conv2d": 3, "bfp_conv2d_pformat": 3, "bfp_conv2d_prequant": 10,
          "bfp_conv2d_xformat": 10, "bfp_matmul_prequant": 3,
-         "bfp_matmul": 0,
+         "bfp_matmul_xformat": 3, "bfp_matmul": 0, "bfp_matmul_pformat": 0,
          **dict.fromkeys(WIRE_COUNTERS, 0)})
     red_plan, _, red_images, launches[red_p] = serve(
         red_p, MODELS["vgg16"].init(gen, reduced=True, device=dev), 32,
         {"bfp_conv2d": 13, "bfp_conv2d_pformat": 13,
          "bfp_conv2d_prequant": 0, "bfp_conv2d_xformat": 0,
-         "bfp_matmul_prequant": 0,
-         "bfp_matmul": 3,
+         "bfp_matmul_prequant": 0, "bfp_matmul_xformat": 0,
+         "bfp_matmul": 3, "bfp_matmul_pformat": 2,
          **dict.fromkeys(WIRE_COUNTERS, 0)})
 
     # -- 5. timing ---------------------------------------------------------
@@ -668,31 +743,42 @@ def main() -> int:
                                   (out - ref).abs().max().item())
                 parts = (w["m"], w["s"]) if is_prequant(w) else (w,)
                 bms, by = bound(x, parts, out, out.numel() // n, n, k)
-                core = (KC.conv_core(is_prequant(x), is_prequant(w),
-                                     k // w["s"].shape[0] if is_prequant(w)
-                                     else pol.block_k, c, n, pol.l_i, None,
-                                     pol.l_w)
-                        if op == "conv" else "tile")
+                kb = (k // w["s"].shape[0] if is_prequant(w)
+                      else pol.block_k)
+                core = (KC.conv_core(is_prequant(x), is_prequant(w), kb, c,
+                                     n, pol.l_i, None, pol.l_w)
+                        if op == "conv" else
+                        KM.matmul_core(is_prequant(w), kb, k, n, pol.l_i,
+                                       pol.l_w))
                 rows[path] = {"kernel": kname, "core": core,
                               "shape": [out.numel() // n, n, k],
                               "ms": cuda_ms(call, reps=5),
                               "plain_ms": cuda_ms(plain, reps=2),
                               "bound_ms": bms, "bound_by": by}
+                # a GEMM's passes run on it as the 1x1 conv over
+                # [1, M, 1, K] (w [1, 1, K, N]), stride 1, VALID
+                fx, fw, fs, fp = ((x, w, stride, padding) if op == "conv"
+                                  else (x.reshape(1, x.shape[0], 1, k),
+                                        w if is_prequant(w) else
+                                        w.reshape(1, 1, k, n), 1, "VALID"))
+                fam = "bfp_conv2d" if op == "conv" else "bfp_matmul"
                 if core == "mma" and is_prequant(w) and not is_prequant(x):
                     # the format pass inside that call, alone: x f32 in,
                     # int8 mantissas and f32 steps out
-                    fbk = k // w["s"].shape[0]
                     fmt = lambda: KC.bfp_conv2d_xformat(  # noqa: E731
-                        x, l_i=pol.l_i, bk=fbk)
+                        fx, l_i=pol.l_i, bk=kb)
                     fplain = lambda: KC.bfp_conv2d_xformat_plain(  # noqa
-                        x, pol.l_i, fbk)
+                        fx, pol.l_i, kb)
+                    got, want = fmt(), fplain()
                     check(all(torch.equal(u, v) for u, v in zip(
-                        nan_bits(fmt()), nan_bits(fplain()))),
+                        nan_bits(got), nan_bits(want))),
                         f"{label} {path}: format pass != plain")
-                    fb, fby = bound(x, (), fmt(), x.numel() // fbk, fbk, 0)
+                    errs[fam + "_xformat"] = max(
+                        errs.get(fam + "_xformat", 0.0), diff(got, want))
+                    fb, fby = bound(x, (), got, x.numel() // kb, kb, 0)
                     rows[path + "/xformat"] = {
-                        "kernel": "bfp_conv2d_xformat", "core": "mma",
-                        "shape": [x.numel() // fbk, fbk, 0],
+                        "kernel": fam + "_xformat", "core": "mma",
+                        "shape": [x.numel() // kb, kb, 0],
                         "ms": cuda_ms(fmt, reps=5),
                         "plain_ms": cuda_ms(fplain, reps=2),
                         "bound_ms": fb, "bound_by": fby}
@@ -700,20 +786,19 @@ def main() -> int:
                     # the patch format pass inside that call, alone: x
                     # and w f32 in, the patch and weight blocks out
                     fmt = lambda: KC.bfp_conv2d_pformat(  # noqa: E731
-                        x, w, l_i=pol.l_i, l_w=pol.l_w, bk=pol.block_k,
-                        stride=stride, padding=padding)
+                        fx, fw, l_i=pol.l_i, l_w=pol.l_w, bk=pol.block_k,
+                        stride=fs, padding=fp)
                     fplain = lambda: KC.bfp_conv2d_pformat_plain(  # noqa
-                        x, w, pol.l_i, pol.l_w, pol.block_k, stride,
-                        padding)
+                        fx, fw, pol.l_i, pol.l_w, pol.block_k, fs, fp)
                     got, want = fmt(), fplain()
                     check(all(torch.equal(u, v) for u, v in zip(
                         nan_bits(got), nan_bits(want))),
                         f"{label} {path}: patch format pass != plain")
-                    errs["bfp_conv2d_pformat"] = max(
-                        errs.get("bfp_conv2d_pformat", 0.0), diff(got, want))
+                    errs[fam + "_pformat"] = max(
+                        errs.get(fam + "_pformat", 0.0), diff(got, want))
                     fb, fby = bound(x, (w,), got, out.numel() // n, n, 0)
                     rows[path + "/pformat"] = {
-                        "kernel": "bfp_conv2d_pformat", "core": "mma",
+                        "kernel": fam + "_pformat", "core": "mma",
                         "shape": [out.numel() // n, n, k],
                         "ms": cuda_ms(fmt, reps=5),
                         "plain_ms": cuda_ms(fplain, reps=2),
@@ -894,11 +979,18 @@ def main() -> int:
                         m, k = xf.shape[0] * xf.shape[1] * xf.shape[2], \
                             kh * kw * c
                     bms, by = bound(x, parts, y, m, n, k)
-                    core = "tile" if fc else KC.conv_core(
-                        is_prequant(x), is_prequant(w),
-                        k // w["s"].shape[0] if is_prequant(w)
-                        else pol.block_k, c, n, pol.l_i,
-                        opol.l_i if opol is not None else None, pol.l_w)
+                    kb = (k // w["s"].shape[0] if is_prequant(w)
+                          else pol.block_k)
+                    obits = opol.l_i if opol is not None else None
+                    if not fc:
+                        core = KC.conv_core(is_prequant(x), is_prequant(w),
+                                            kb, c, n, pol.l_i, obits,
+                                            pol.l_w)
+                    elif is_prequant(x):   # the wire-format matmuls
+                        core = "tile"
+                    else:
+                        core = KM.matmul_core(is_prequant(w), kb, k, n,
+                                              pol.l_i, pol.l_w, obits)
                     row = rows[name] = {
                         "kernel": kernel_of(kplan, name, x), "core": core,
                         "epilogue": opol is not None, "shape": [m, n, k],
@@ -1190,8 +1282,15 @@ def main() -> int:
         bms = sum(r["bound_ms"] for r in rows.values())
         bytes_ms = sum(r["bound_ms"] for r in rows.values()
                        if r["bound_by"] == "bytes")
+        src = SOURCES[name]
+        if isinstance(src, dict):    # the core the path's layers ran on
+            src = src["mma" if any(r.get("core") == "mma"
+                                   for r in rows.values()) else "tile"]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
+            "name": name, "route": "cuda", "source": src,
+            "sources_by_core": (SOURCES[name]
+                                if isinstance(SOURCES[name], dict)
+                                else None),
             "replaces": REPLACES[name], "path": path,
             "launches": launches[path][name],
             "launches_by_path": {p: launches[p][name] for p in launches},

@@ -46,20 +46,22 @@ Every other conv (x-prequant with float weights, the requantize
 epilogue, L > 8, other blocks, OC % 4 != 0) runs on the tile kernel
 (``csrc/bfp_tile.cuh``).  The outputs are bit-identical either way; a
 failed build or launch raises, it never falls back to the other core.
+The core's shape rules and launch helpers live in ``kernels._mma``,
+which the f32-output matmuls share: a matmul runs there as the 1x1 conv
+over x viewed as ``[1, B, 1, K]`` (``kernels.bfp_matmul.matmul_core``).
 """
 from __future__ import annotations
 
-import contextlib
-import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.conv_utils import conv_geometry, im2col
-from repro_torch.kernels import _build
-from repro_torch.kernels.bfp_matmul import (_INT_MAX, Out, _check_cuda,
-                                            _check_wire, _finish_plain,
+from repro_torch.kernels._mma import (_INT_MAX, MMA_MAX_BK, MMA_TILES,
+                                      _aligned, _check_cuda, _launch_patch,
+                                      _lib, _on, _patch, _raise_on, _stream,
+                                      mma_core, mma_tile, patch_core)
+from repro_torch.kernels.bfp_matmul import (Out, _check_wire, _finish_plain,
                                             _outputs, _pad_k, _ptr,
                                             _weights_inline, _weights_wire,
                                             check_epilogue, check_overflow,
@@ -81,65 +83,6 @@ LAUNCHES = {"bfp_conv2d": 0, "bfp_conv2d_prequant": 0,
             "bfp_conv2d_xprequant": 0, "bfp_conv2d_xwprequant": 0,
             "bfp_conv2d_epilogue": 0, "bfp_conv2d_xformat": 0,
             "bfp_conv2d_pformat": 0}
-
-#: the mma core's (rows, columns) tiles, largest first (``bfp_mma.cuh``
-#: ``launch_conv``: tile index = position here)
-MMA_TILES = ((64, 128), (32, 64), (32, 32), (16, 32))
-#: the largest block the mma core stages (three stages fit 227 KB)
-MMA_MAX_BK = 512
-#: an H100's streaming multiprocessors: the tile whose grid reaches this
-#: many blocks is taken
-_SMS = 132
-#: shared memory a block may use (bytes), and the core's layout of it:
-#: three stages of x rows (+16 bytes), w rows (+4) and steps, and the
-#: transposed w tile (``bfp_mma.cuh`` smem_bytes)
-_SMEM = 232448
-
-
-def _mma_smem(bm: int, bn: int, bk: int) -> int:
-    return 3 * (bm * (bk + 16) + bk * (bn + 4) + 4 * (bm + bn)) + bn * bk
-
-
-def _mma_block(bk: int, n: int, out_bits: Optional[int]) -> bool:
-    """What every conv on the mma core needs: an f32 output, a block the
-    core stages (a power of two from 32 to :data:`MMA_MAX_BK`) and an OC
-    that its 4-byte weight copies tile."""
-    return (out_bits is None and 32 <= bk <= MMA_MAX_BK
-            and bk & (bk - 1) == 0 and n % 4 == 0)
-
-
-def mma_core(bk: int, c: int, n: int, out_bits: Optional[int],
-             x_bits: Optional[int] = None) -> bool:
-    """Does a weight-prequant conv run on the int8 mma core?  ``x_bits``
-    is the L of an f32 x formatted here (None for a wire-format x, whose
-    mantissas are int8 whatever its L).  A pure function of shape and
-    policy: the epilogue, L > 8, a block that is not a power of two from
-    32 to :data:`MMA_MAX_BK` dividing C, and an OC that 4-byte copies
-    cannot tile stay on the tile kernel."""
-    return (_mma_block(bk, n, out_bits) and (x_bits is None or x_bits <= 8)
-            and c % bk == 0)
-
-
-def patch_core(bk: int, n: int, out_bits: Optional[int], l_i: int,
-               l_w: int) -> bool:
-    """Does an inline-weight conv run on the int8 mma core (after the
-    patch format pass)?  As :func:`mma_core`, with both operands'
-    mantissas int8 (L <= 8) and no condition on C: the patch blocks need
-    not line up with channel chunks."""
-    return _mma_block(bk, n, out_bits) and l_i <= 8 and l_w <= 8
-
-
-@functools.lru_cache(maxsize=1024)
-def mma_tile(m: int, n: int, bk: int) -> int:
-    """Index into :data:`MMA_TILES`: the first tile whose grid fills the
-    card's SMs, whose width is at most N (or 32) and whose shared memory
-    fits, else the smallest.  A speed choice only: the bits do not depend
-    on it."""
-    for i, (bm, bn) in enumerate(MMA_TILES):
-        if (bn <= max(n, 32) and _mma_smem(bm, bn, bk) <= _SMEM
-                and -(-m // bm) * -(-n // bn) >= _SMS):
-            return i
-    return len(MMA_TILES) - 1
 
 
 def conv_core(wire_x: bool, prequant_w: bool, bk: int, c: int, n: int,
@@ -250,54 +193,6 @@ def bfp_conv2d_xwprequant_plain(xm: torch.Tensor, xs: torch.Tensor,
     return _finish_plain(out.reshape(b, oh, ow, oc), out_bits, out_block)
 
 
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("bfp_conv")
-        for fn, args in (
-                (lib.bfp_conv_launch,
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 19),
-                (lib.bfp_conv_xformat_launch, [ctypes.c_void_p] * 3 + [
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int]),
-                (lib.bfp_conv_pformat_launch,
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17),
-                (lib.bfp_conv_patch_launch,
-                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 18),
-                (lib.bfp_conv_mma_launch,
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14)):
-            fn.argtypes = args + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when its data starts on 16 bytes (the vector loads
-    and 16-byte copies need it), else an aligned copy."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _on(dev: torch.device):
-    """Make ``dev`` the current device for a launch (a no-op guard when
-    it already is: the usual case, and the cheap one)."""
-    return (contextlib.nullcontext() if torch._C._cuda_getDevice() == dev.index
-            else torch.cuda.device(dev))
-
-
-def _stream(dev: torch.device) -> int:
-    """PyTorch's current stream on ``dev``, as the raw handle (no
-    ``torch.cuda.Stream`` object is built per launch)."""
-    return torch._C._cuda_getCurrentRawStream(dev.index)
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
 def bfp_conv2d_xformat(x: torch.Tensor, *, l_i: int,
                        bk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The activation format pass: f32 NHWC x -> (int8 mantissas
@@ -353,49 +248,6 @@ def _launch_mma(xm, xs, wm, ws, bk, stride, padding, name) -> torch.Tensor:
     return out
 
 
-class _Patch:
-    """Geometry of an inline conv's patch matrix [M, Kp] and the byte
-    offsets of the format pass's outputs in one workspace of ``nbytes``
-    that holds ``rows`` patch rows (the route through the core): x
-    mantissas [rows, Kp], x steps [rows, n_k], w mantissas [Kp, OC], w
-    steps [n_k, OC], each on 16 bytes.  ``chunked``: rows * Kp stays
-    within the int32 indexing of the format pass and the core (else
-    rows = M).  Built through :func:`_patch`, once per shape: a served
-    layer pays no Python for it after its first call."""
-
-    def __init__(self, x_shape, w_shape, bk: int, stride: int, padding: str,
-                 chunked: bool = False):
-        b, h, wd, c = x_shape
-        kh, kw, _, oc = w_shape
-        oh, ow, (pt, _), (pl, _) = conv_geometry(h, wd, kh, kw, stride,
-                                                 padding)
-        self.m, self.n_k = b * oh * ow, -(-kh * kw * c // bk)
-        self.kp = self.n_k * bk
-        self.out_shape = (b, oh, ow, oc)
-        self.dims = (h, wd, c, kh, kw, oc, stride, oh, ow, pt, pl)
-        self.rows = min(self.m, _INT_MAX // self.kp) if chunked else self.m
-        offsets, off = [], 0
-        for size in (self.rows * self.kp, 4 * self.rows * self.n_k,
-                     self.kp * oc, 4 * self.n_k * oc):
-            offsets.append(off)
-            off += -(-size // 16) * 16
-        self.offsets, self.nbytes = tuple(offsets), off
-
-    def check(self, x: torch.Tensor) -> None:
-        """The format pass's and the core's indices are 32-bit."""
-        if max(x.numel(), self.rows * self.kp,
-               self.kp * self.out_shape[3]) > _INT_MAX:
-            raise ValueError(f"conv {tuple(x.shape)} -> "
-                             f"{self.out_shape} exceeds the kernels' int32 "
-                             f"indexing")
-
-
-@functools.lru_cache(maxsize=1024)
-def _patch(x_shape, w_shape, bk: int, stride: int, padding: str,
-           chunked: bool) -> _Patch:
-    return _Patch(x_shape, w_shape, bk, stride, padding, chunked)
-
-
 def _launch_pformat(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
                     bk: int, stride: int, padding: str):
     """The patch format pass alone, every row in one launch -> the four
@@ -416,35 +268,6 @@ def _launch_pformat(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
                 "bfp_conv2d_pformat")
         LAUNCHES["bfp_conv2d_pformat"] += 1
     return outs
-
-
-def _launch_patch(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
-                  bk: int, stride: int, padding: str) -> torch.Tensor:
-    """The inline conv on the mma core: per chunk of patch rows, one host
-    call that launches the patch format pass (the weight too in the first
-    chunk) and the core as a 1x1 conv over the chunk's patch matrix
-    [1, rows, 1, Kp] -> f32 NHWC.  Rows are chunked only where rows * Kp
-    would pass the int32 indexing (never at the served batch of 8)."""
-    x, w = _aligned(x.float().contiguous()), w.float().contiguous()
-    geo = _patch(x.shape, w.shape, bk, stride, padding, True)
-    geo.check(x)
-    dev = _check_cuda(x, w)
-    out = torch.empty(geo.out_shape, dtype=torch.float32, device=dev)
-    oc = geo.out_shape[3]
-    if not geo.m or not oc:
-        return out
-    ws = torch.empty(geo.nbytes, dtype=torch.uint8, device=dev)
-    ptrs = [ws.data_ptr() + o for o in geo.offsets]
-    with _on(dev):
-        for row0 in range(0, geo.m, geo.rows):
-            rows = min(geo.rows, geo.m - row0)
-            _raise_on(_lib().bfp_conv_patch_launch(
-                x.data_ptr(), w.data_ptr(), *ptrs, out.data_ptr(), row0,
-                rows, int(row0 == 0), *geo.dims, bk, l_i, l_w,
-                mma_tile(rows, oc, bk), _stream(dev)), "bfp_conv2d")
-            LAUNCHES["bfp_conv2d_pformat"] += 1
-            LAUNCHES["bfp_conv2d"] += 1
-    return out
 
 
 def _launch(x, xs, w, ws, l_i, l_w, bk, stride, padding, out_bits,
@@ -516,7 +339,8 @@ def bfp_conv2d(x: torch.Tensor, w_hwio: torch.Tensor, *, l_i: int, l_w: int,
         return bfp_conv2d_plain(x, w_hwio, l_i, l_w, bk, stride, padding,
                                 out_bits, out_block)
     if patch_core(bk, w_hwio.shape[3], out_bits, l_i, l_w):
-        return _launch_patch(x, w_hwio, l_i, l_w, bk, stride, padding)
+        return _launch_patch(x, w_hwio, l_i, l_w, bk, stride, padding,
+                             LAUNCHES, "bfp_conv2d_pformat", "bfp_conv2d")
     return _launch(x.float().contiguous(), None, w_hwio.float().contiguous(),
                    None, l_i, l_w, bk, stride, padding, out_bits, out_block,
                    "bfp_conv2d")

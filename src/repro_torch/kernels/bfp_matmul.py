@@ -11,10 +11,29 @@ the f32 accumulator per (row, ``out_block`` column chunk) and returns
 ``(int8 mantissas [B, N], f32 steps [B, N // out_block])`` instead.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
-it launches ``csrc/bfp_matmul.cu`` (built on first use) or raises —
-there is no fallback from one to the other.  ``LAUNCHES`` counts kernel
-launches per wrapper, and under ``bfp_matmul_epilogue`` the launches
-that ran the fused epilogue.
+it launches a kernel or raises — there is no fallback from one to the
+other, nor from one core to the other.  Two cores, chosen by
+:func:`matmul_core` (a pure function of shape and policy):
+
+* the int8 ``mma.sync`` core of the convs (``csrc/bfp_mma.cuh``, built
+  into ``csrc/bfp_conv.cu``) takes the matmuls with f32 x and an f32
+  output that it can run as the 1x1, stride-1, unpadded conv over x
+  viewed as ``[1, B, 1, K]`` and w as ``[1, 1, K, N]``: a (row, K-tile)
+  block of the matmul is a (pixel, channel chunk) block of that conv,
+  and the weight sidecar ``[K // bk, N]`` has the same layout in both.
+  ``bfp_matmul_prequant`` runs the conv's activation format pass and
+  then the core, from one host call; ``bfp_matmul`` (float weights) the
+  inline conv's patch format pass and then the core;
+* the tile kernel (``csrc/bfp_matmul.cu``) takes the rest: the
+  requantize epilogue, the wire-format x of the x- and xw-prequant
+  matmuls, L > 8, blocks that are not a power of two from 32 to 512, and
+  N % 4 != 0.
+
+The outputs are bit-identical on both.  ``LAUNCHES`` counts kernel
+launches per wrapper (a core launch under the wrapper's own name), under
+``bfp_matmul_epilogue`` the launches that ran the fused epilogue, under
+``bfp_matmul_xformat`` the activation format passes and under
+``bfp_matmul_pformat`` the patch format passes.
 """
 from __future__ import annotations
 
@@ -26,19 +45,24 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.bfp import ZERO_BLOCK_EXP, pow2
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _mma
+from repro_torch.kernels._mma import (_INT_MAX, _check_cuda, mma_core,
+                                      patch_core)
 
 __all__ = ["bfp_matmul", "bfp_matmul_prequant", "bfp_matmul_xprequant",
            "bfp_matmul_xwprequant", "bfp_matmul_plain",
            "bfp_matmul_prequant_plain", "bfp_matmul_xprequant_plain",
            "bfp_matmul_xwprequant_plain", "requant_plain", "check_overflow",
-           "check_epilogue", "EPILOGUE_COLS", "LAUNCHES"]
+           "check_epilogue", "matmul_core", "EPILOGUE_COLS", "LAUNCHES"]
 
 #: kernel launches per wrapper, incremented only where a kernel launches;
-#: ``bfp_matmul_epilogue`` counts those that ran the fused epilogue
+#: ``bfp_matmul_epilogue`` counts those that ran the fused epilogue,
+#: ``bfp_matmul_xformat`` the activation format passes and
+#: ``bfp_matmul_pformat`` the patch format passes of the mma core's route
 LAUNCHES = {"bfp_matmul": 0, "bfp_matmul_prequant": 0,
             "bfp_matmul_xprequant": 0, "bfp_matmul_xwprequant": 0,
-            "bfp_matmul_epilogue": 0}
+            "bfp_matmul_epilogue": 0, "bfp_matmul_xformat": 0,
+            "bfp_matmul_pformat": 0}
 
 #: the column tile of the epilogue kernels (``bfp_tile.cuh`` EPI_COLS): an
 #: epilogue block must divide it, so each block lies in one thread block
@@ -46,8 +70,6 @@ EPILOGUE_COLS = 128
 
 #: f32 holds every integer of magnitude <= 2^24 exactly
 _F32_EXACT_BOUND = 1 << 24
-
-_INT_MAX = (1 << 31) - 1
 
 #: f32 output, or the epilogue's (int8 mantissas, f32 steps)
 Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -75,6 +97,26 @@ def check_epilogue(out_bits: Optional[int], out_block: Optional[int],
             EPILOGUE_COLS % out_block:
         raise ValueError(f"epilogue out_block={out_block} must divide "
                          f"N={n} and the {EPILOGUE_COLS}-column tile")
+
+
+def matmul_core(prequant_w: bool, bk: int, k: int, n: int, l_i: int,
+                l_w: int, out_bits: Optional[int] = None) -> str:
+    """"mma" or "tile": the core a matmul with f32 x takes.  As the 1x1
+    conv over ``[1, B, 1, K]``: prequant weights take the mma core where
+    the prequant conv does (``_mma.mma_core``, C = K), float weights where
+    the inline conv does (``_mma.patch_core``); both need Kp * N within
+    the core's int32 indexing (Kp: K rounded up to a ``bk`` multiple).
+    B sets no condition: past 2^31 elements x is cut into row blocks.
+    The wire-format matmuls (x- and xw-prequant) stay on the tile
+    kernel."""
+    kp = -(-k // bk) * bk
+    if k < 1 or kp * n > _INT_MAX:
+        return "tile"
+    if prequant_w:
+        on_mma = mma_core(bk, k, n, out_bits, l_i)
+    else:
+        on_mma = patch_core(bk, n, out_bits, l_i, l_w)
+    return "mma" if on_mma else "tile"
 
 
 def _check_wire(m: torch.Tensor, what: str) -> None:
@@ -247,20 +289,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(*tensors: Optional[torch.Tensor]) -> torch.device:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernels take CUDA tensors (CPU tensors run "
-                         f"the plain version), got {dev}")
-    for t in tensors:
-        if t is not None and t.device != dev:
-            raise ValueError(f"operands on different devices: {t.device} "
-                             f"vs {dev}")
-        if t is not None and not t.is_contiguous():
-            raise ValueError("kernel operands must be contiguous")
-    return dev
-
-
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -299,6 +327,58 @@ def _launch(x, xs, w, ws, l_i, l_w, bk, out_bits, out_block, name) -> Out:
     return out if out_bits is None else (out, out_s)
 
 
+def _launch_mma(x: torch.Tensor, wm: torch.Tensor, ws: torch.Tensor,
+                l_i: int, bk: int) -> torch.Tensor:
+    """The prequant matmul on the mma core: per block of rows, one host
+    call that launches the activation format pass (x per (row, K-tile)
+    into a workspace of int8 mantissas and f32 steps) and the core as the
+    1x1 conv over ``[1, rows, 1, K]``.  Rows are cut into blocks only
+    where rows * K would pass the int32 indexing (never when served)."""
+    x = _mma._aligned(x.float().contiguous())
+    wm, ws = _mma._aligned(wm.contiguous()), ws.float().contiguous()
+    dev = _check_cuda(x, wm, ws)
+    m, k = x.shape
+    n = wm.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if not m or not n:
+        return out
+    rows = min(m, _INT_MAX // k)
+    xs_at = -(-rows * k // 16) * 16
+    buf = torch.empty(xs_at + 4 * rows * (k // bk), dtype=torch.uint8,
+                      device=dev)
+    with _mma._on(dev):
+        for row0 in range(0, m, rows):
+            r = min(rows, m - row0)
+            _mma._raise_on(_mma._lib().bfp_matmul_mma_launch(
+                x.data_ptr() + 4 * row0 * k, wm.data_ptr(), ws.data_ptr(),
+                buf.data_ptr(), buf.data_ptr() + xs_at,
+                out.data_ptr() + 4 * row0 * n, r, n, k, bk, l_i,
+                _mma.mma_tile(r, n, bk), _mma._stream(dev)),
+                "bfp_matmul_prequant")
+            LAUNCHES["bfp_matmul_xformat"] += 1
+            LAUNCHES["bfp_matmul_prequant"] += 1
+    return out
+
+
+def _launch_patch(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
+                  bk: int) -> torch.Tensor:
+    """The inline matmul on the mma core: the inline conv's route (patch
+    format pass, then the core; one host call) over x viewed as
+    ``[1, B, 1, K]`` and w as ``[1, 1, K, N]``, stride 1, VALID.  The
+    pass indexes x with 32 bits, so an x of more than 2^31 elements runs
+    as row blocks, each its own 1x1 conv (never when served)."""
+    m, k = x.shape
+    n = w.shape[1]
+    rows = _INT_MAX // (-(-k // bk) * bk)
+    if m > rows:
+        return torch.cat([_launch_patch(x[r0:r0 + rows], w, l_i, l_w, bk)
+                          for r0 in range(0, m, rows)])
+    out = _mma._launch_patch(x.reshape(1, m, 1, k), w.reshape(1, 1, k, n),
+                             l_i, l_w, bk, 1, "VALID", LAUNCHES,
+                             "bfp_matmul_pformat", "bfp_matmul")
+    return out.reshape(m, n)
+
+
 def _check_operands(x_shape, w_shape, bk, xs=None, ws=None) -> None:
     b, k = x_shape
     k2, n = w_shape
@@ -323,6 +403,9 @@ def bfp_matmul(x: torch.Tensor, w: torch.Tensor, *, l_i: int, l_w: int,
     check_epilogue(out_bits, out_block, w.shape[1])
     if x.device.type == "cpu":
         return bfp_matmul_plain(x, w, l_i, l_w, bk, out_bits, out_block)
+    if matmul_core(False, bk, x.shape[1], w.shape[1], l_i, l_w,
+                   out_bits) == "mma":
+        return _launch_patch(x, w, l_i, l_w, bk)
     return _launch(x.float().contiguous(), None, w.float().contiguous(),
                    None, l_i, l_w, bk, out_bits, out_block, "bfp_matmul")
 
@@ -340,6 +423,9 @@ def bfp_matmul_prequant(x: torch.Tensor, wm: torch.Tensor, ws: torch.Tensor,
     if x.device.type == "cpu":
         return bfp_matmul_prequant_plain(x, wm, ws, l_i, l_w, bk, out_bits,
                                          out_block)
+    if matmul_core(True, bk, x.shape[1], wm.shape[1], l_i, l_w,
+                   out_bits) == "mma":
+        return _launch_mma(x, wm, ws, l_i, bk)
     return _launch(x.float().contiguous(), None, wm.contiguous(),
                    ws.float().contiguous(), l_i, l_w, bk, out_bits,
                    out_block, "bfp_matmul_prequant")

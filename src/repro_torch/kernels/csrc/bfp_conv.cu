@@ -5,7 +5,9 @@
 // the inline-weight conv with f32 output, after the patch format pass of
 // bfp_pformat.cuh (bfp_conv_patch_launch: the pass, then the core as a
 // 1x1 conv over the patch matrix); every other conv mode runs on the tile
-// kernel, as follows.
+// kernel, as follows.  The f32-output matmuls run on the same core as
+// 1x1 convs: bfp_matmul_mma_launch below for prequant weights, and
+// bfp_conv_patch_launch over x viewed as [1, B, 1, K] for float weights.
 //
 // Fused implicit-im2col BFP convolution on the tile kernel:
 // NHWC x [B, H, W, C] (*) HWIO w [KH, KW, C, OC] -> f32 [B, OH, OW, OC],
@@ -145,6 +147,60 @@ extern "C" int bfp_conv_patch_launch(const void* x, const void* w, void* xm,
   p.KW = 1;
   p.S = 1;
   p.OH = rows;
+  p.OW = 1;
+  return bfp_mma::launch_conv(p, tile, s);
+}
+
+// The weight-prequant matmul with an f32 output on the mma core: f32 x
+// [M, K] @ int8 wm [K, N] (steps ws [K / bk, N]) -> f32 out [M, N].
+// Replaces, for that case, bfp_matmul_prequant_pallas
+// (repro/kernels/bfp_matmul.py:388).  A matmul is the 1x1, stride-1,
+// unpadded conv over x viewed as NHWC [1, M, 1, K]: a (row, K-tile) block
+// is a (pixel, channel chunk) block, and the sidecar [K / bk, N] is the
+// conv's.  So the activation format pass writes xm [M, K] int8 + xs
+// [M, K / bk] f32 into the caller's workspace and the core runs that
+// conv: two launches, one host call (the ResNet and GoogLeNet forwards
+// are host-bound, and a GEMM costs them one ctypes call, as on the tile
+// kernel).  No new core and no new tile: the bits are the prequant conv's.
+//
+// What bounds it on this card: at the served batch of a few images the
+// weight stream is the only large operand (fc6: 102.8 MB of int8
+// mantissas, 3.2 MB of steps, 0.8 MB of x), so the bound is bytes over
+// the 3.35 TB/s of HBM, ~0.032 ms for fc6.  The tile kernel gave every
+// 64-row tile eight zero rows per real one and re-formatted x for every
+// column tile.  Here x is formatted once (a few hundred KB), each weight
+// byte is read once, by the one 16-row tile that covers the batch, and
+// the int dot runs on the tensor cores.  What the route does not do:
+// with N / 32 blocks (128 for fc6, 32 for fc8), each walking its K-tiles
+// through a 3-stage ring of 4 KB weight tiles, too few bytes are in
+// flight for HBM's full rate; a skinny-M tile or an order-keeping split-K
+// would add them.
+extern "C" int bfp_matmul_mma_launch(const void* x, const void* wm,
+                                     const void* ws, void* xm, void* xs,
+                                     void* out, int M, int N, int K, int bk,
+                                     int l_i, int tile, void* stream) {
+  if (bk < 1 || K % bk) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc = bfp_mma::launch_xformat(
+      static_cast<const float*>(x), static_cast<int8_t*>(xm),
+      static_cast<float*>(xs), (long long)M * (K / bk), bk, l_i, s);
+  if (rc) return rc;
+  bfp_mma::ConvParams p = {};
+  p.xm = static_cast<const int8_t*>(xm);
+  p.xs = static_cast<const float*>(xs);
+  p.wm = static_cast<const int8_t*>(wm);
+  p.ws = static_cast<const float*>(ws);
+  p.out = static_cast<float*>(out);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.bk = bk;
+  p.H = M;
+  p.W = 1;
+  p.C = K;
+  p.KW = 1;
+  p.S = 1;
+  p.OH = M;
   p.OW = 1;
   return bfp_mma::launch_conv(p, tile, s);
 }

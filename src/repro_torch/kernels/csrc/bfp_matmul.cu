@@ -12,12 +12,20 @@
 // the X_PQ / W_PQ template flags of the shared tile kernel (bfp_tile.cuh,
 // which states the arithmetic contract and the design).
 //
-// What bounds it on this card: on the serving path (fc6/fc7/fc8 at a
-// batch of a few images) the weight stream — fc6 alone is 102.8 M int8
-// mantissas — is the only large operand, so the bound is bytes over the
-// 3.35 TB/s of HBM.  This first kernel keeps 64-row tiles, so at batch 8
-// most of each tile's __dp4a work is on zero rows and it runs well above
-// that bound; a skinny-M tile and wgmma are later work.
+// Which calls still run here: the f32-output matmuls with f32 x that the
+// int8 mma core can take (a power-of-two block from 32 to 512, L <= 8,
+// N % 4 == 0) run on that core as 1x1 convs, from bfp_conv.cu
+// (bfp_matmul_mma_launch for prequant weights, bfp_conv_patch_launch for
+// float weights; kernels/bfp_matmul.py matmul_core).  This tile kernel
+// keeps the requantize epilogue (every chained matmul), the wire-format
+// x of the x- and xw-prequant matmuls, L > 8, other blocks and N % 4 != 0
+// (reduced VGG16's fc8, N = 10).
+//
+// What bounds it on this card: at a batch of a few images the weight
+// stream is the only large operand, so the bound is bytes over the
+// 3.35 TB/s of HBM.  This kernel keeps 64-row tiles, so at batch 8 most
+// of each tile's __dp4a work is on zero rows and it runs well above that
+// bound.
 #include "bfp_tile.cuh"
 
 extern "C" int bfp_matmul_launch(const void* x, const void* xs, const void* w,

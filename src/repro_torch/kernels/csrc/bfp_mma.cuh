@@ -8,11 +8,14 @@
 // bfp_conv2d_xwprequant_pallas with an f32 output (both operands in the
 // wire format).  The inline-weight conv with an f32 output
 // (bfp_conv2d_pallas) runs this core too, as a 1x1 conv over the patch
-// matrix that bfp_pformat.cuh formats.  Everything else (the x-prequant
-// conv with float weights, the requantize epilogue, L > 8, a block that
-// is not a power of two from 32 to 512, every matmul) stays on the tile
-// kernel of bfp_tile.cuh; the wrapper (kernels/bfp_conv.py, conv_core)
-// picks the core from shape and policy alone.
+// matrix that bfp_pformat.cuh formats, and so do the f32-output matmuls
+// with f32 x, as 1x1 convs over x viewed as [1, B, 1, K]
+// (bfp_matmul_mma_launch, bfp_conv_patch_launch in bfp_conv.cu).
+// Everything else (the x-prequant conv with float weights, the requantize
+// epilogue, L > 8, a block that is not a power of two from 32 to 512, the
+// wire-format matmuls) stays on the tile kernel of bfp_tile.cuh; the
+// wrappers (kernels/bfp_conv.py conv_core, kernels/bfp_matmul.py
+// matmul_core) pick the core from shape and policy alone.
 //
 // Arithmetic (bit-identical to the tile kernel and to kernels/ref.py):
 //   out[r, n] = sum over K-tiles t = 0 .. n_k-1, in order, of

@@ -269,6 +269,52 @@ def test_cuda_patch_format_and_inline_conv_match_plain_versions(cuda):
     torch.cuda.synchronize()
 
 
+# (B, K, N, bk, L): the f32-output matmuls on the mma core at ragged
+# shapes (B and N not tile multiples, K not a block multiple inline)
+MM_MMA_CASES = [(17, 1536, 36, 512, 8), (3, 96, 20, 32, 4),
+                (17, 2047, 44, 32, 8), (5, 300, 1000, 128, 4)]
+
+
+@pytest.mark.gpu
+def test_cuda_matmuls_on_the_mma_core_match_plain_versions(cuda):
+    """The prequant matmul (format pass + core) and the inline matmul
+    (patch format pass + core) as 1x1 convs on the mma core, against
+    their plain versions on the card, bit-equal: zero, NaN, inf and
+    subnormal rows, an inf weight and an inf weight step.  Each call
+    launches one format pass and one core launch, counted under the
+    matmul's names; no conv counter moves."""
+    for case in MM_MMA_CASES:
+        b, k, n, bk, L = case
+        x = t(normal((b, k), seed=k + n)).to(cuda)
+        x[0, :bk] = 0.0
+        x[1, 3] = float("nan")
+        x[2 % b, k - 1] = float("inf")
+        x[-1] = 1e-40 * torch.sign(x[-1])
+        w = t(normal((k, n), seed=n, scale=0.05)).to(cuda)
+        if k % bk == 0:
+            assert KM.matmul_core(True, bk, k, n, L, 8) == "mma", case
+            d = prequant_leaf(w, TPU_TILED.with_(block_k=bk))
+            d["s"][-1, 1] = float("inf")
+            K.reset_launch_counts()
+            got = KM.bfp_matmul_prequant(x, d["m"], d["s"], l_i=L, l_w=8,
+                                         bk=bk)
+            counts = {c: v for c, v in K.launch_counts().items() if v}
+            assert counts == {"bfp_matmul_xformat": 1,
+                              "bfp_matmul_prequant": 1}, (case, counts)
+            _both_equal(got, KM.bfp_matmul_prequant_plain(
+                x, d["m"], d["s"], L, 8, bk), ("prequant", case))
+        assert KM.matmul_core(False, bk, k, n, L, L) == "mma", case
+        w[k // 3, 1] = float("inf")
+        K.reset_launch_counts()
+        got = KM.bfp_matmul(x, w, l_i=L, l_w=L, bk=bk)
+        counts = {c: v for c, v in K.launch_counts().items() if v}
+        assert counts == {"bfp_matmul_pformat": 1, "bfp_matmul": 1}, \
+            (case, counts)
+        _both_equal(got, KM.bfp_matmul_plain(x, w, L, L, bk),
+                    ("inline", case))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_cuda_chain_on_the_wire_equals_the_float_chain(cuda):
     """Through the engine on the card: each producer's fused epilogue
@@ -313,12 +359,15 @@ def test_served_vgg16_on_the_card_equals_the_cpu(cuda, bk):
         assert eng.stats["completed"] == 3 and eng.stats["failed"] == 0
         logits[str(dev)] = torch.stack([torch.from_numpy(r.logits)
                                         for r in reqs])
-    # one launch of a conv or matmul core per layer; an inline conv on the
-    # mma core (block 128) adds one patch format pass
+    # one launch of a conv or matmul core per layer; an inline conv or
+    # matmul on the mma core (block 128: the 13 convs, fc6 and fc7; fc8's
+    # N = 10 stays on the tile kernel) adds one patch format pass
     counts = K.launch_counts()
-    assert sum(counts.values()) - counts["bfp_conv2d_pformat"] == \
-        16 * eng.ncalls
+    passes = counts["bfp_conv2d_pformat"] + counts["bfp_matmul_pformat"]
+    assert sum(counts.values()) - passes == 16 * eng.ncalls
     assert counts["bfp_conv2d_pformat"] == (13 * eng.ncalls if bk == 128
+                                            else 0)
+    assert counts["bfp_matmul_pformat"] == (2 * eng.ncalls if bk == 128
                                             else 0)
     assert torch.equal(logits["cpu"], logits["cuda"])
 
