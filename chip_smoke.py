@@ -25,7 +25,15 @@ raises (and so exits non-zero) when it fails:
    ResNet-50's fc and GoogLeNet's loss fc1, at M = 1 and 17, blocks 32,
    128 and 512, L 4 and 8, inline at K = 64, 4096 and a ragged 2047,
    with zero, NaN, inf and subnormal rows and an inf weight, and reduced
-   VGG16's fc8 (N = 10) on the tile kernel;
+   VGG16's fc8 (N = 10) on the tile kernel; the x-prequant conv on the
+   mma core after its weight format pass, and the requantize epilogue of
+   every conv mode and of both matmuls with f32 x as the output format
+   pass after the core (each pass also alone), at VGG16's conv4_2,
+   conv3_1 and fc6 as the chains run them, at a ragged M with OC = 40,
+   block 32, out_block 4 and hazard pixels, inf / NaN / subnormal wire
+   steps and an inf weight, at blocks 512 and 128 (stride 2) with
+   OC = 200 and 224 and out_block 8 and 32; and one case per tile-kernel
+   fallback (L_W = 9, out_block = 2, OC = 30);
 4. the main path: full-width VGG16 (224x224x3, 1000 classes, seeded
    random weights) bound with ``PALLAS_TILED`` (strict, prequantized) and
    served through ``CnnServeEngine`` — 16 requests, no failures, no float
@@ -53,14 +61,17 @@ raises (and so exits non-zero) when it fails:
    next)``, no bias or ReLU between.  Plan A binds the phase-4 weights
    prequantized (the xw-prequant kernels), plan B with float weights (the
    x-prequant kernels).  Each plan's launches are counted in its own
-   zeroed run and checked, with the fused-epilogue count; every output
+   zeroed run and checked (``CHAIN_LAUNCHES``: every chain conv and fc6
+   on the mma core, each with its format passes; fc7-8 on the tile
+   kernel), with the epilogue count; every output
    (wire dicts included) is ``torch.equal`` to the same chain through a
    backend of plain versions, each ``out_policy`` output to
    ``prequant_act`` of the layer's f32 output, and each chain's end to
    the float-activation chain.  Then each layer is timed (CUDA events)
    as it runs in the chain, through the plain versions, and with f32 in
-   and out, beside its bound and the core it ran on; then the sum over
-   each chain's epilogue layers;
+   and out, beside its bound and the core it ran on, and the weight and
+   output format passes inside it alone (checked bit-equal); then the
+   sums over each chain's epilogue layers and wire-x convs;
 7. the block-formatting kernel (``bfp_quantize``) against its plain
    version at ragged M and K, blocks 32/128/512, L 4/8, with zero, inf
    and NaN blocks; then the path ``resnet50_format``: full-width
@@ -94,9 +105,10 @@ raises (and so exits non-zero) when it fails:
    layers that run it, per batch-8 forward (per chain run for the
    wire-format kernels, per formatting of ResNet-50 for
    ``bfp_quantize``).  ``bfp_conv2d_prequant``'s, ``bfp_conv2d``'s and
-   the two f32 matmuls' ms are their wrappers': the format pass and the
-   core; the ``*_xformat`` and ``*_pformat`` rows are the format passes
-   alone.  A matmul row's ``source`` is the file of the core its path
+   the f32-x matmuls' ms are their wrappers': the format pass and the
+   core (and the output pass in a chain); the ``*_xformat``,
+   ``*_pformat``, ``*_wformat`` and ``*_oformat`` rows are the format
+   passes alone.  A matmul row's ``source`` is the file of the core its path
    ran (``sources_by_core`` names both).
 """
 from __future__ import annotations
@@ -130,6 +142,8 @@ SOURCES = {"bfp_matmul": _MM_BOTH, "bfp_matmul_prequant": _MM_BOTH,
            "bfp_conv2d": _CONV_CU, "bfp_conv2d_prequant": _CONV_CU,
            "bfp_conv2d_xprequant": _CONV_CU, "bfp_conv2d_xwprequant": _CONV_CU,
            "bfp_conv2d_xformat": _CONV_CU, "bfp_conv2d_pformat": _CONV_CU,
+           "bfp_conv2d_wformat": _CONV_CU, "bfp_conv2d_oformat": _CONV_CU,
+           "bfp_matmul_oformat": _CONV_CU,
            "bfp_quantize": "src/repro_torch/kernels/csrc/bfp_quantize.cu"}
 REPLACES = {"bfp_matmul": "src/repro/kernels/bfp_matmul.py:362",
             "bfp_matmul_prequant": "src/repro/kernels/bfp_matmul.py:388",
@@ -150,19 +164,27 @@ REPLACES = {"bfp_matmul": "src/repro/kernels/bfp_matmul.py:362",
             # x_tile / w_tile of _make_conv_kernel, which the inline conv
             # now formats once per patch block and weight block
             "bfp_conv2d_pformat": "src/repro/kernels/bfp_conv.py:131",
+            # w_tile of _make_conv_kernel, which the x-prequant conv now
+            # formats once per call (the patch pass's weight blocks)
+            "bfp_conv2d_wformat": "src/repro/kernels/bfp_conv.py:137",
+            # the out_q epilogue of _make_conv_kernel and _requant_store,
+            # now the activation format pass over the core's f32 output
+            "bfp_conv2d_oformat": "src/repro/kernels/bfp_conv.py:166",
+            "bfp_matmul_oformat": "src/repro/kernels/bfp_matmul.py:169",
             "bfp_quantize": "src/repro/kernels/bfp_quantize.py:38"}
-#: counters of the wire-format kernels and of the fused epilogue, which
-#: no served path launches (phase 4 expects them at 0)
+#: counters of the wire-format kernels, of the requantize epilogue and of
+#: the weight and output format passes, which no served path launches
+#: (phases 4 and 8 expect them at 0)
 WIRE_COUNTERS = ("bfp_matmul_xprequant", "bfp_matmul_xwprequant",
                  "bfp_conv2d_xprequant", "bfp_conv2d_xwprequant",
-                 "bfp_matmul_epilogue", "bfp_conv2d_epilogue")
+                 "bfp_matmul_epilogue", "bfp_conv2d_epilogue",
+                 "bfp_conv2d_wformat", "bfp_conv2d_oformat",
+                 "bfp_matmul_oformat")
 #: the chains of phase 6: each stage starts from the real activation at
 #: its entry; conv1_x cannot chain (C = 3 and 64 are not block multiples)
 CHAIN_STAGES = (("conv2_1", "conv2_2"), ("conv3_1", "conv3_2", "conv3_3"),
                 ("conv4_1", "conv4_2", "conv4_3"),
                 ("conv5_1", "conv5_2", "conv5_3"), ("fc6", "fc7", "fc8"))
-#: predicted launches per chain run at batch 8 (plan A: weights
-#: prequantized; plan B: float weights); 9 run the fused epilogue each
 #: predicted launches per batch-8 forward of the full-width models: a
 #: conv or GEMM whose K = kh*kw*C is a multiple of the 128 block is
 #: prequantized at bind (prequant conv / matmul); prequant_leaf leaves any
@@ -197,27 +219,37 @@ MODEL_LAUNCHES = {
 #: the format passes of the mma core, timed alone as rows of their own
 #: beside the layer whose time includes them
 FORMAT_PASSES = ("bfp_conv2d_xformat", "bfp_conv2d_pformat",
-                 "bfp_matmul_xformat", "bfp_matmul_pformat")
+                 "bfp_matmul_xformat", "bfp_matmul_pformat",
+                 "bfp_conv2d_wformat", "bfp_conv2d_oformat",
+                 "bfp_matmul_oformat")
 #: offline formatting of ResNet-50: one launch per prequantized weight
 FORMAT_LAUNCHES = {"bfp_quantize": 45}
 #: (M, K, bk, bits) of the phase-7 checks: ragged M and K, blocks 32, 128
 #: and 512, L 4 and 8 (rows 0-4 of each carry the hazard blocks)
 Q_SHAPES = ((1000, 2047, 128, 8), (37, 300, 32, 4), (512, 4608, 512, 8),
             (2049, 1153, 128, 8), (64, 147, 32, 8), (300, 96, 512, 4))
-#: every inline conv in the chains, and every matmul that takes f32 x
-#: (fc6), runs the epilogue, so on the tile kernel: no format pass
+#: every chain conv and fc6 run on the mma core: an f32-x layer after its
+#: activation (prequant) or patch (inline) format pass, a wire-x conv with
+#: float weights after its weight format pass, every layer with an
+#: out_policy (7 convs and fc6; fc7 on the tile kernel) with one output
+#: format pass after the core; fc7-8 (wire-format matmuls) on the tile
+#: kernel.  Per chain run at batch 8 (plan A: weights prequantized; plan
+#: B: float weights); 9 layers run the requantize epilogue each
 CHAIN_LAUNCHES = {
-    "chain_A": {"bfp_conv2d": 1, "bfp_conv2d_pformat": 0,
-                "bfp_conv2d_prequant": 3,
-                "bfp_conv2d_xwprequant": 7, "bfp_matmul_prequant": 1,
-                "bfp_matmul_xwprequant": 2, "bfp_conv2d_epilogue": 7,
+    "chain_A": {"bfp_conv2d": 1, "bfp_conv2d_pformat": 1,
+                "bfp_conv2d_prequant": 3, "bfp_conv2d_xformat": 3,
+                "bfp_conv2d_xwprequant": 7, "bfp_conv2d_oformat": 7,
+                "bfp_conv2d_epilogue": 7, "bfp_matmul_prequant": 1,
+                "bfp_matmul_xformat": 1, "bfp_matmul_oformat": 1,
+                "bfp_matmul_xwprequant": 2, "bfp_matmul_epilogue": 2,
+                "bfp_matmul_pformat": 0, "bfp_conv2d_wformat": 0},
+    "chain_B": {"bfp_conv2d": 4, "bfp_conv2d_pformat": 4,
+                "bfp_conv2d_xprequant": 7, "bfp_conv2d_wformat": 7,
+                "bfp_conv2d_oformat": 7, "bfp_conv2d_epilogue": 7,
+                "bfp_matmul": 1, "bfp_matmul_pformat": 1,
+                "bfp_matmul_oformat": 1, "bfp_matmul_xprequant": 2,
                 "bfp_matmul_epilogue": 2, "bfp_matmul_xformat": 0,
-                "bfp_matmul_pformat": 0},
-    "chain_B": {"bfp_conv2d": 4, "bfp_conv2d_pformat": 0,
-                "bfp_conv2d_xprequant": 7,
-                "bfp_matmul": 1, "bfp_matmul_xprequant": 2,
-                "bfp_conv2d_epilogue": 7, "bfp_matmul_epilogue": 2,
-                "bfp_matmul_xformat": 0, "bfp_matmul_pformat": 0}}
+                "bfp_conv2d_xformat": 0}}
 
 
 def fail(msg: str) -> None:
@@ -539,6 +571,132 @@ def main() -> int:
     wh[700, 1] = float("inf")
     mm_case("ragged_K2047", "off_path",
             hazard_rows(rnd(17, 2047, relu=True), 32), wh, False, mbk=32)
+
+    # the wire-x conv and the requantize epilogue on the mma core: the
+    # x-prequant conv after its weight format pass, and every conv mode
+    # and matmul with f32 x followed by the output format pass; each pass
+    # also alone
+    def wire_x(x, cbk, L, hazards):
+        xm, xs = KC.bfp_conv2d_xformat_plain(x, L, cbk)
+        if hazards:         # wire steps that are inf, NaN and subnormal
+            xs[0, 0, 1, 0] = float("inf")
+            xs[-1, 1, 1, -1] = float("nan")
+            xs[0, 2, 2, 0] = 1e-40
+        return xm, xs
+
+    def epi_case(label, path, mode, x, w, stride=1, padding="SAME", cbk=bk,
+                 L=8, lw=None, obits=8, ob=bk, hazards=False):
+        """A conv of ``mode`` ("xprequant", "xwprequant", "prequant" or
+        "inline") on f32 x (formatted to the wire first for the wire
+        modes), with the epilogue (``obits`` None: f32 out)."""
+        lw = L if lw is None else lw
+        kh, kw, c, oc = w.shape
+        wire = mode in ("xprequant", "xwprequant")
+        prequant = mode in ("xwprequant", "prequant")
+        core = KC.conv_core(wire, prequant, cbk, c, oc, L, obits, lw, ob)
+        check(core == ("tile" if label.startswith("tile_") else "mma"),
+              f"{label}: {mode} routed to the {core} core")
+        xs_ = wire_x(x, cbk, L, hazards) if wire else (x,)
+        ws_ = ((lambda d: (d["m"], d["s"]))(prequant_conv_leaf(
+            w, pol.with_(block_k=cbk))) if prequant else (w,))
+        name = "bfp_conv2d" if mode == "inline" else "bfp_conv2d_" + mode
+        kern, plain_fn = getattr(KC, name), getattr(KC, name + "_plain")
+        args = xs_ + ws_
+        call = lambda: kern(*args, l_i=L, l_w=lw, bk=cbk,  # noqa: E731
+                            stride=stride, padding=padding, out_bits=obits,
+                            out_block=ob)
+        plain = lambda: plain_fn(*args, L, lw, cbk, stride,  # noqa: E731
+                                 padding, obits, ob)
+        oh, ow, _, _ = conv_geometry(x.shape[1], x.shape[2], kh, kw, stride,
+                                     padding)
+        m = x.shape[0] * oh * ow
+        xin = {"m": xs_[0], "s": xs_[1]} if wire else x
+        cases.append((label, path, name, call, plain, xin, ws_, m, oc,
+                      kh * kw * c, core))
+        if core == "mma" and mode == "xprequant":   # its weight pass alone
+            cases.append((label, path, "bfp_conv2d_wformat",
+                          lambda: KC.bfp_conv2d_wformat(w, l_w=lw, bk=cbk),
+                          lambda: KC.bfp_conv2d_wformat_plain(w, lw, cbk),
+                          w, (), kh * kw * c, oc, 0, core))
+        if core == "mma" and obits is not None:     # its output pass alone
+            y = plain_fn(*args, L, lw, cbk, stride, padding)
+            cases.append((label, path, "bfp_conv2d_oformat",
+                          lambda: KC.bfp_conv2d_xformat(y, l_i=obits, bk=ob),
+                          lambda: KM.requant_plain(y, obits, ob), y, (),
+                          y.numel() // ob, ob, 0, core))
+
+    def mm_epi_case(label, path, x, w, prequant, mbk=bk, L=8, obits=8,
+                    ob=bk):
+        (m, k), n = x.shape, w.shape[1]
+        core = KM.matmul_core(prequant, mbk, k, n, L, L, obits, ob)
+        check(core == "mma", f"{label}: matmul routed to the {core} core")
+        lw = 8 if prequant else L
+        if prequant:
+            d = prequant_leaf(w, pol.with_(block_k=mbk))
+            args, name = (x, d["m"], d["s"]), "bfp_matmul_prequant"
+        else:
+            args, name = (x, w), "bfp_matmul"
+        kern, plain_fn = getattr(KM, name), getattr(KM, name + "_plain")
+        cases.append((label, path, name,
+                      lambda: kern(*args, l_i=L, l_w=lw, bk=mbk,
+                                   out_bits=obits, out_block=ob),
+                      lambda: plain_fn(*args, L, lw, mbk, obits, ob), x,
+                      args[1:], m, n, k, core))
+        if core == "mma":                           # its output pass alone
+            y4 = plain_fn(*args, L, lw, mbk).reshape(1, m, 1, n)
+            cases.append((label, path, "bfp_matmul_oformat",
+                          lambda: KC.bfp_conv2d_xformat(y4, l_i=obits,
+                                                        bk=ob),
+                          lambda: KC.bfp_conv2d_xformat_plain(y4, obits, ob),
+                          y4, (), m * n // ob, ob, 0, core))
+
+    # VGG16 conv4_2 as chain_B runs it (wire x, float w) and as chain_A
+    # does (wire x, prequant w), conv3_1 as chain_A (prequant) and chain_B
+    # (inline) run it, each requantized for its consumer; fc6 likewise
+    x42, w42 = rnd(b, 28, 28, 512, relu=True), rnd(3, 3, 512, 512,
+                                                   scale=0.02)
+    epi_case("conv4_2", "chain_B", "xprequant", x42, w42)
+    epi_case("conv4_2", "chain_A", "xwprequant", x42, w42)
+    x31, w31 = rnd(b, 56, 56, 128, relu=True), rnd(3, 3, 128, 256,
+                                                   scale=0.03)
+    epi_case("conv3_1", "chain_A", "prequant", x31, w31)
+    epi_case("conv3_1", "chain_B", "inline", x31, w31)
+    x6, w6 = rnd(b, 25088, relu=True), rnd(25088, 4096, scale=0.009)
+    mm_epi_case("fc6", "chain_A", x6, w6, True)
+    mm_epi_case("fc6", "chain_B", x6, w6, False)
+    # every mode at a ragged M (189 rows) and OC = 40 with block 32,
+    # out_block 4, L 6 out: zero, NaN, inf and subnormal pixels, wire
+    # steps that are inf, NaN and subnormal, an inf weight
+    xr = rnd(3, 9, 7, 64)
+    xr[1] = 1e-40 * torch.sign(xr[1])
+    xr[0, 0, 0, :32] = 0.0
+    xr[0, 1, 1, 3] = float("nan")
+    xr[2, 8, 6, 31] = float("inf")
+    wr = rnd(3, 3, 64, 40, scale=0.05)
+    wr[0, 1, 2, 3] = float("inf")
+    for mode in ("xprequant", "xwprequant", "prequant", "inline"):
+        epi_case("ragged_" + mode, "off_path", mode, xr, wr, cbk=32, obits=6,
+                 ob=4, hazards=True)
+    # blocks 512 and 128 (stride 2, VALID), OC = 200 and 224, out_block 8
+    # and 32
+    epi_case("wx_bk512", "off_path", "xprequant", rnd(2, 7, 7, 512),
+             rnd(1, 1, 512, 200, scale=0.03), cbk=512, L=4, obits=3, ob=8)
+    epi_case("wx_s2", "off_path", "xprequant", rnd(3, 7, 5, 256),
+             rnd(3, 3, 256, 224, scale=0.03), stride=2, padding="VALID",
+             obits=8, ob=32, hazards=True)
+    mm_epi_case("ragged_mm_pq", "off_path",
+                hazard_rows(rnd(17, 1536, relu=True), 512),
+                rnd(1536, 36, scale=0.03), True, mbk=512, obits=3, ob=4)
+    mm_epi_case("ragged_mm_K2047", "off_path",
+                hazard_rows(rnd(17, 2047, relu=True), 32), wh, False, mbk=32,
+                L=4, obits=6, ob=4)
+    # the tile kernel keeps L_W = 9, out_block = 2 and OC % 4 != 0
+    epi_case("tile_L9", "off_path", "xprequant", xr, wr, cbk=32, lw=9,
+             ob=8, hazards=True)
+    epi_case("tile_ob2", "off_path", "xwprequant", xr, wr, cbk=32, ob=2,
+             hazards=True)
+    epi_case("tile_oc30", "off_path", "xprequant", xr,
+             wr[..., :30].contiguous(), cbk=32, obits=None, hazards=True)
 
     def nan_bits(a):    # NaN-aware bit patterns (hazard inputs make NaN)
         a = a if isinstance(a, tuple) else (a,)
@@ -931,7 +1089,7 @@ def main() -> int:
                      + launches[label]["bfp_matmul_epilogue"])
             print(f"path {label}: launches per chain run "
                   f"{ {k: v for k, v in launches[label].items() if v} }, "
-                  f"fused epilogue {fused}", flush=True)
+                  f"requantize epilogue {fused}", flush=True)
             want = {**dict.fromkeys(launches[label], 0),
                     **CHAIN_LAUNCHES[label]}
             check(launches[label] == want,
@@ -944,7 +1102,7 @@ def main() -> int:
                     errs[kname] = max(errs.get(kname, 0.0), max_diff(y, py))
                     check(same(y, py), f"{label} {name}: {kname} differs "
                                        f"from the plain-version chain")
-                    # (b) the fused epilogue == the two-step route
+                    # (b) the epilogue == the two-step route
                     if opol is not None:
                         fn = kplan.gemm if name.startswith("fc") \
                             else kplan.conv2d
@@ -981,16 +1139,20 @@ def main() -> int:
                     bms, by = bound(x, parts, y, m, n, k)
                     kb = (k // w["s"].shape[0] if is_prequant(w)
                           else pol.block_k)
-                    obits = opol.l_i if opol is not None else None
+                    obits, ob = ((opol.l_i, opol.block_k) if opol is not None
+                                 else (None, None))
                     if not fc:
                         core = KC.conv_core(is_prequant(x), is_prequant(w),
                                             kb, c, n, pol.l_i, obits,
-                                            pol.l_w)
+                                            pol.l_w, ob)
                     elif is_prequant(x):   # the wire-format matmuls
                         core = "tile"
                     else:
                         core = KM.matmul_core(is_prequant(w), kb, k, n,
-                                              pol.l_i, pol.l_w, obits)
+                                              pol.l_i, pol.l_w, obits, ob)
+                    check(core == ("tile" if fc and is_prequant(x)
+                                   else "mma"),
+                          f"{label} {name}: ran on the {core} core")
                     row = rows[name] = {
                         "kernel": kernel_of(kplan, name, x), "core": core,
                         "epilogue": opol is not None, "shape": [m, n, k],
@@ -1011,11 +1173,59 @@ def main() -> int:
                           f"{row['f32_ms']:.4f} ms  bound {bms:.4f} ms ({by}),"
                           f" f32 bound {row['f32_bound_ms']:.4f} ms  [{card}]",
                           flush=True)
+                    # the passes around the core in that call, each alone:
+                    # a float weight's format pass, the output format pass
+                    # over the layer's f32 output (a GEMM's as [1, M, 1, N])
+                    fam = "bfp_matmul" if fc else "bfp_conv2d"
+                    passes = []
+                    if core == "mma" and is_prequant(x) and not \
+                            is_prequant(w):
+                        passes.append((
+                            "wformat", "bfp_conv2d_wformat", w,
+                            lambda: KC.bfp_conv2d_wformat(w, l_w=pol.l_w,
+                                                          bk=kb),
+                            lambda: KC.bfp_conv2d_wformat_plain(
+                                w, pol.l_w, kb)))
+                    if core == "mma" and opol is not None:
+                        y4 = yf.reshape(1, m, 1, n) if fc else yf
+                        passes.append((
+                            "oformat", fam + "_oformat", y4,
+                            lambda: KC.bfp_conv2d_xformat(y4, l_i=obits,
+                                                          bk=ob),
+                            lambda: KC.bfp_conv2d_xformat_plain(y4, obits,
+                                                                ob)))
+                    for tag, pname, pin, pcall, pplain in passes:
+                        got, want = pcall(), pplain()
+                        check(all(torch.equal(u, v) for u, v in zip(
+                            nan_bits(got), nan_bits(want))),
+                            f"{label} {name}: {tag} pass != plain")
+                        errs[pname] = max(errs.get(pname, 0.0),
+                                          diff(got, want))
+                        pb, pby = bound(pin, (), got, 0, 0, 0)
+                        prow = rows[f"{name}/{tag}"] = {
+                            "kernel": pname, "core": "mma",
+                            "epilogue": False, "shape": list(pin.shape),
+                            "ms": cuda_ms(pcall, reps=5),
+                            "plain_ms": cuda_ms(pplain, reps=2),
+                            "bound_ms": pb, "bound_by": pby}
+                        print(f"time chain {label} {name + '/' + tag:<14} "
+                              f"{pname:<22} kernel {prow['ms']:.4f} ms  "
+                              f"plain {prow['plain_ms']:.4f} ms  bound "
+                              f"{pb:.4f} ms ({pby})  [{card}]", flush=True)
             epi = [r for r in rows.values() if r["epilogue"]]
-            print(f"time chain {label}: {len(epi)} layers run the fused "
-                  f"epilogue, kernel {sum(r['ms'] for r in epi):.4f} ms, "
-                  f"bound {sum(r['bound_ms'] for r in epi):.4f} ms (int8 "
-                  f"mantissas and steps out)  [{card}]", flush=True)
+            wx = [r for r in rows.values()
+                  if r["kernel"] == "bfp_conv2d_xprequant"]
+            oft = sum(r["ms"] for r in rows.values()
+                      if r["kernel"].endswith("_oformat"))
+            print(f"time chain {label}: {len(epi)} layers run the "
+                  f"requantize epilogue, kernel "
+                  f"{sum(r['ms'] for r in epi):.4f} ms, bound "
+                  f"{sum(r['bound_ms'] for r in epi):.4f} ms (int8 mantissas "
+                  f"and steps out; output format passes inside them "
+                  f"{oft:.4f} ms); {len(wx)} wire-x convs with float "
+                  f"weights {sum(r['ms'] for r in wx):.4f} ms, bound "
+                  f"{sum(r['bound_ms'] for r in wx):.4f} ms  [{card}]",
+                  flush=True)
 
     # -- 7. bfp_quantize: the offline block formatting -----------------------
     def q_input(m, k, bk):

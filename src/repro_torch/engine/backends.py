@@ -8,8 +8,8 @@
   cuda      the hand-written Hopper kernels (``repro_torch.kernels``):
             Scheme.TILED only; with prequant weights it runs the
             sidecar-consuming kernel variant, with wire-format activations
-            the x-prequant variants, and it fuses the requantize epilogue
-            (``act_prequant``/``out_quant``).  Registered under "pallas"
+            the x-prequant variants, and it runs the requantize epilogue
+            in the same kernel call (``act_prequant``/``out_quant``).  Registered under "pallas"
             too, so policies and PolicyMap JSON written by ``repro`` (whose
             fused-kernel backend has that name) load unchanged.
 
@@ -62,7 +62,7 @@ class Backend:
     #: idempotence, one more round-trip through device memory.
     act_prequant: bool = False
     #: do ``matmul``/``conv`` take ``out_policy=`` and emit the wire format
-    #: from the accumulator (the fused requantize epilogue)?  False means
+    #: themselves (the kernel call's requantize epilogue)?  False means
     #: the engine requantizes the float output in a second step.
     out_quant: bool = False
 
@@ -159,7 +159,7 @@ def _emulated_matmul(x2d, w, policy, noise=None):
 def _cuda_matmul(x2d, w, policy, out_policy=None, noise=None):
     # x2d may be the activation wire format (a previous layer's epilogue
     # output): ops dispatches the x-prequant kernels; out_policy asks for
-    # the fused requantize epilogue.
+    # the requantize epilogue.
     from repro_torch.kernels import ops
     if is_prequant(w):
         return ops.bfp_matmul_prequant(x2d, w["m"], w["s"], policy,

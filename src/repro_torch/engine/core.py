@@ -17,8 +17,10 @@ resolved policy and backend.
 Activation wire format.  ``out_policy=`` asks an execution to emit the
 CONSUMING layer's quantized input ``{"m": int8 [.., N], "s": f32
 [.., N//bk]}`` instead of dense float: on a backend with ``out_quant``
-the requantization fuses into the kernel epilogue (the f32 activation
-never reaches device memory); anywhere else the engine requantizes the
+the kernel call requantizes (the tile kernel in its epilogue, so the
+f32 activation never reaches device memory; the mma core by an output
+format pass that reads it once from a scratch tensor); anywhere else the
+engine requantizes the
 float output in a second step (``prequant_act``).  An ``x`` already in
 that format goes straight to an ``act_prequant`` backend, and is
 dequantized first for every other route (bit-identical by quantization
@@ -245,7 +247,7 @@ def conv2d(x: Any, w: Any, policy: PolicyLike = None, *,
     prequant ``{"m": int8 HWIO, "s": [K//bk, OC]}`` wire format.
     ``out_policy=`` returns the wire format, as in :func:`gemm`: chained
     convs on the cuda backend hand ``{"m", "s"}`` activations layer to
-    layer with no f32 activation in device memory.
+    layer, the f32 output only a kernel call's scratch.
     ``noise``: uniform noise in [0, 1) for a STOCHASTIC policy (where
     ``repro`` takes ``key=``), with the elements of the im2col patch
     matrix ``[B*OH*OW, kh*kw*C]`` in its row-major order (HWIO-major

@@ -19,12 +19,16 @@ Chained layers hand activations over in the wire format:
 Backward plans (``Site.dx``/``dw``) arrive with the training slice and
 stay None here; until then a kernel-backend site refuses an operand that
 requires grad (``engine.core``), where it would get a zero gradient.
+
+``model_paths=`` restricts the bound sites to an explicit list (and
+scopes prequantization to it) and binds policy-only entries for paths
+the walk cannot see, as ``repro``'s ``bind`` does.
 """
 from __future__ import annotations
 
 import dataclasses
 import types
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple, Union
 
 import torch
 
@@ -146,6 +150,32 @@ class Plan:
             self._fwd_cache[apply_fn] = fn
         return fn
 
+    def describe(self) -> str:
+        """Human-readable site table (examples / serving admission logs),
+        in ``repro``'s layout.  The grad column reads ``float`` for a site
+        with no backward plan, as ``repro``'s does for an unresolved one:
+        every port site until the training slice binds them."""
+        lines = []
+        for path in sorted(self._sites):
+            s = self._sites[path]
+            pol = ("float" if s.policy is None else
+                   f"L_W={s.policy.l_w},L_I={s.policy.l_i},"
+                   f"{s.policy.scheme.value}")
+            extra = (" (fallback)" if s.fallback else "") + \
+                    (" [prequant]" if s.prequantized else "")
+
+            def gdesc(spec):
+                if spec is None or spec.policy is None:
+                    return "float"
+                gp = spec.policy
+                be = spec.backend.name if spec.backend is not None else "?"
+                return f"L{gp.l_w}/{gp.l_i}@{be}"
+
+            grad = f" grad[dx={gdesc(s.dx)},dw={gdesc(s.dw)}]"
+            lines.append(f"{path:<24} {s.kind:<5} {pol:<24} "
+                         f"-> {s.backend.name}{extra}{grad}")
+        return "\n".join(lines)
+
 
 def _validate_policy_backends(policy: PolicyLike) -> None:
     """Every backend a policy (or PolicyMap rule) names must exist —
@@ -158,6 +188,19 @@ def _validate_policy_backends(policy: PolicyLike) -> None:
     for p in pols:
         if p is not None:
             BK.get_backend(p.backend_name)
+
+
+class _ScopedPolicy:
+    """``resolve_policy`` adapter limiting a policy to an explicit site
+    set: leaves outside ``wanted`` resolve to None (stay float)."""
+
+    def __init__(self, policy: PolicyLike, wanted):
+        self._policy, self._wanted = policy, wanted
+
+    def resolve(self, path):
+        if path not in self._wanted:
+            return None
+        return resolve_policy(self._policy, path)
 
 
 def params_to(params: Any, device: torch.device) -> Any:
@@ -198,15 +241,21 @@ def _discover_sites(params: Any):
             yield rpath, "gemm", leaf
 
 
-def bind(params: Any, policy: PolicyLike, *, tree: str = "auto",
-         strict: bool = False, prequantize: bool = True,
-         device: DeviceLike = "cuda") -> Plan:
+def bind(params: Any, policy: PolicyLike,
+         model_paths: Optional[Iterable[Union[str, Tuple[str, str]]]] = None,
+         *, tree: str = "auto", strict: bool = False,
+         prequantize: bool = True, device: DeviceLike = "cuda") -> Plan:
     """Bind ``policy`` to a CNN's parameters: one walk, one Plan.
 
     Args:
       params: model param tree (``models.cnn`` conventions; an already
         pre-quantized tree is fine — quantization is idempotent).
       policy: None / BFPPolicy / PolicyMap — resolved per site, once.
+      model_paths: optional explicit site list — strings or (path, kind)
+        pairs.  Restricts the discovered sites to these paths (and the
+        prequantization to their leaves) and binds policy-only entries
+        (no weight checks, no prequant; kind "gemm" unless given) for
+        paths the tree walk cannot see.  Default: every site found.
       tree: "cnn" or "auto"; LM trees arrive with the LM slice.
       strict: refuse (raise) backend downgrades instead of the once-per-
         site :class:`BackendFallbackWarning` and the emulated fallback —
@@ -225,14 +274,24 @@ def bind(params: Any, policy: PolicyLike, *, tree: str = "auto",
     if kind != "cnn":
         raise ValueError(f"bind supports CNN trees (tree='cnn' or 'auto' on "
                          f"a CNN tree) until the LM slice; got {kind!r}")
+    wanted: Optional[Dict[str, Optional[str]]] = None
+    if model_paths is not None:
+        wanted = {}
+        for mp in model_paths:
+            if isinstance(mp, str):
+                wanted[mp] = None
+            else:
+                wanted[mp[0]] = mp[1]
     qparams = params_to(params, dev)
     if prequantize:
-        qparams = quantize_cnn_param_tree(qparams, policy)
+        # a model_paths restriction scopes prequantization too: sites
+        # outside it are not bound, so their leaves stay float
+        qparams = quantize_cnn_param_tree(
+            qparams, policy if wanted is None else _ScopedPolicy(policy,
+                                                                 wanted))
     warned: set = set()   # fresh per bind: each plan reports its own
-    sites: Dict[str, Site] = {}
-    for path, skind, leaf in _discover_sites(qparams):
-        if path in sites:
-            continue
+
+    def site(path, skind, leaf, prequantized):
         pol = resolve_policy(policy, path)
         if pol is None:
             be, fb = BK.get_backend("float"), False
@@ -240,6 +299,14 @@ def bind(params: Any, policy: PolicyLike, *, tree: str = "auto",
             be = BK.select_backend(pol, leaf, strict=strict, path=path,
                                    warned=warned)
             fb = be.name != pol.backend_name
-        sites[path] = Site(path, skind, pol, be, fb,
-                           prequantized=is_prequant(leaf))
+        return Site(path, skind, pol, be, fb, prequantized=prequantized)
+
+    sites: Dict[str, Site] = {}
+    for path, skind, leaf in _discover_sites(qparams):
+        if path in sites or (wanted is not None and path not in wanted):
+            continue
+        sites[path] = site(path, skind, leaf, is_prequant(leaf))
+    for path, skind in (wanted or {}).items():
+        if path not in sites:   # policy-only entries for unseen paths
+            sites[path] = site(path, skind or "gemm", None, False)
     return Plan(sites, qparams, policy, strict, device=dev)

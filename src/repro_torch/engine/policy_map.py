@@ -46,6 +46,10 @@ class PolicyMap:
                     return pol
         return self.default
 
+    def with_default(self, default: Optional[BFPPolicy]) -> "PolicyMap":
+        """The same rules with ``default`` for unmatched paths."""
+        return dataclasses.replace(self, default=default)
+
     @classmethod
     def from_dict(cls, cfg: Dict[str, Any]) -> "PolicyMap":
         """Build from plain data (e.g. JSON): {"rules": [{"pattern": ...,

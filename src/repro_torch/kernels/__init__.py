@@ -4,7 +4,9 @@ PyTorch versions (counterpart of ``repro.kernels``).
 ``launch_counts()`` / ``reset_launch_counts()`` read and clear the
 per-wrapper kernel launch counters, so a run can show which kernels the
 main path went through; ``bfp_matmul_epilogue`` / ``bfp_conv2d_epilogue``
-count the launches that ran the fused requantize epilogue.
+count the calls that ran the requantize epilogue (on the tile kernel in
+its launch, on the mma core as the output format pass counted under
+``*_oformat``).
 """
 from typing import Dict
 

@@ -9,6 +9,11 @@ compiles the core and both format passes.  A matmul is the 1x1,
 stride-1, unpadded conv over x viewed as ``[1, B, 1, K]``, so
 ``kernels.bfp_conv`` and ``kernels.bfp_matmul`` both route through here
 and neither imports the other for it.
+
+The requantize epilogue (``out_bits``/``out_block``) takes the core where
+the f32 call would: the call's f32 route writes the output to a scratch
+tensor, and the activation format pass then formats it per (row,
+``out_block`` chunk), the tile kernel's epilogue blocks and rules.
 """
 from __future__ import annotations
 
@@ -42,33 +47,43 @@ def _mma_smem(bm: int, bn: int, bk: int) -> int:
     return 3 * (bm * (bk + 16) + bk * (bn + 4) + 4 * (bm + bn)) + bn * bk
 
 
-def _mma_block(bk: int, n: int, out_bits: Optional[int]) -> bool:
-    """What every call on the mma core needs: an f32 output, a block the
-    core stages (a power of two from 32 to :data:`MMA_MAX_BK`) and an N
-    that its 4-byte weight copies tile, in a grid the card launches."""
-    return (out_bits is None and 32 <= bk <= MMA_MAX_BK
-            and bk & (bk - 1) == 0 and n % 4 == 0 and -(-n // 32) <= 65535)
+def _mma_block(bk: int, n: int, out_bits: Optional[int],
+               out_block: Optional[int]) -> bool:
+    """What every call on the mma core needs: a block the core stages (a
+    power of two from 32 to :data:`MMA_MAX_BK`) and an N that its 4-byte
+    weight copies tile, in a grid the card launches; and an f32 output,
+    or an epilogue the output format pass runs: int8 mantissas (2 <=
+    ``out_bits`` <= 8) in blocks of a multiple of 4 floats (its 16-byte
+    loads) that tile N."""
+    epilogue = out_bits is None or (
+        2 <= out_bits <= 8 and out_block is not None and out_block >= 4
+        and out_block % 4 == 0 and n % out_block == 0)
+    return (epilogue and 32 <= bk <= MMA_MAX_BK and bk & (bk - 1) == 0
+            and n % 4 == 0 and -(-n // 32) <= 65535)
 
 
 def mma_core(bk: int, c: int, n: int, out_bits: Optional[int],
-             x_bits: Optional[int] = None) -> bool:
-    """Does a weight-prequant conv run on the int8 mma core?  ``x_bits``
-    is the L of an f32 x formatted here (None for a wire-format x, whose
-    mantissas are int8 whatever its L).  A pure function of shape and
-    policy: the epilogue, L > 8, a block that is not a power of two from
-    32 to :data:`MMA_MAX_BK` dividing C, and an OC that 4-byte copies
-    cannot tile stay on the tile kernel."""
-    return (_mma_block(bk, n, out_bits) and (x_bits is None or x_bits <= 8)
-            and c % bk == 0)
+             fmt_bits: Optional[int] = None,
+             out_block: Optional[int] = None) -> bool:
+    """Does a conv with x on the wire run on the int8 mma core?  That is
+    the prequant conv (x formatted here), the x-prequant conv (w
+    formatted here) and the xw-prequant conv.  ``fmt_bits`` is the L of
+    the operand formatted here (None when both arrive on the wire, whose
+    mantissas are int8 whatever their L).  A pure function of shape and
+    policy: L > 8, a block that is not a power of two from 32 to
+    :data:`MMA_MAX_BK` dividing C, an OC that 4-byte copies cannot tile
+    and an epilogue the output pass cannot run stay on the tile kernel."""
+    return (_mma_block(bk, n, out_bits, out_block)
+            and (fmt_bits is None or fmt_bits <= 8) and c % bk == 0)
 
 
 def patch_core(bk: int, n: int, out_bits: Optional[int], l_i: int,
-               l_w: int) -> bool:
+               l_w: int, out_block: Optional[int] = None) -> bool:
     """Does an inline-weight conv run on the int8 mma core (after the
     patch format pass)?  As :func:`mma_core`, with both operands'
     mantissas int8 (L <= 8) and no condition on C: the patch blocks need
     not line up with channel chunks."""
-    return _mma_block(bk, n, out_bits) and l_i <= 8 and l_w <= 8
+    return _mma_block(bk, n, out_bits, out_block) and l_i <= 8 and l_w <= 8
 
 
 @functools.lru_cache(maxsize=1024)
@@ -101,11 +116,11 @@ def _lib() -> ctypes.CDLL:
                 (lib.bfp_conv_pformat_launch,
                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17),
                 (lib.bfp_conv_patch_launch,
-                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 18),
+                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 20),
                 (lib.bfp_conv_mma_launch,
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14),
+                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 18),
                 (lib.bfp_matmul_mma_launch,
-                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)):
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8)):
             fn.argtypes = args + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -148,6 +163,37 @@ def _stream(dev: torch.device) -> int:
 def _raise_on(rc: int, name: str) -> None:
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _outputs(shape, out_bits: Optional[int], out_block: Optional[int],
+             dev: torch.device):
+    """Kernel outputs: f32 ``shape``, or int8 ``shape`` + f32 steps with
+    the last axis cut into ``out_block`` chunks."""
+    if out_bits is None:
+        return torch.empty(shape, dtype=torch.float32, device=dev), None
+    return (torch.empty(shape, dtype=torch.int8, device=dev),
+            torch.empty((*shape[:-1], shape[-1] // out_block),
+                        dtype=torch.float32, device=dev))
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _count(counters: Dict[str, int], family: str, core: str,
+           out_bits: Optional[int], *passes: str, layer: bool = True) -> None:
+    """One host call on the mma core: the core under ``core``, each
+    format pass it issued under ``family + pass``, and with ``out_bits``
+    the output pass under ``family + "_oformat"``.  ``layer``: the call is
+    the layer's first, so with ``out_bits`` the layer also counts under
+    ``family + "_epilogue"`` (once per layer, however its rows are
+    chunked)."""
+    counters[core] += 1
+    for p in passes:
+        counters[family + p] += 1
+    if out_bits is not None:
+        counters[family + "_oformat"] += 1
+        counters[family + "_epilogue"] += int(layer)
 
 
 class _Patch:
@@ -195,32 +241,39 @@ def _patch(x_shape, w_shape, bk: int, stride: int, padding: str,
 
 def _launch_patch(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
                   bk: int, stride: int, padding: str,
-                  counters: Dict[str, int], fmt: str,
-                  core: str) -> torch.Tensor:
+                  counters: Dict[str, int], family: str,
+                  out_bits: Optional[int] = None,
+                  out_block: Optional[int] = None, layer: bool = True):
     """An inline conv on the mma core: per chunk of patch rows, one host
     call that launches the patch format pass (the weight too in the first
-    chunk) and the core as a 1x1 conv over the chunk's patch matrix
-    [1, rows, 1, Kp] -> f32 NHWC.  Rows are chunked only where rows * Kp
+    chunk), the core as a 1x1 conv over the chunk's patch matrix
+    [1, rows, 1, Kp] -> f32 NHWC and, with ``out_bits``, the output
+    format pass over the chunk's rows (the f32 output is then scratch and
+    the wire pair is returned).  Rows are chunked only where rows * Kp
     would pass the int32 indexing (never at the served batch of 8).  Each
-    host call adds one to ``counters[fmt]`` (the pass) and to
-    ``counters[core]`` (the core)."""
+    host call counts under ``family`` (``bfp_conv2d`` or ``bfp_matmul``):
+    the core, ``_pformat`` and, with the epilogue, ``_oformat``; the
+    layer counts once under ``_epilogue`` unless ``layer`` is False (a
+    later row block of one matmul)."""
     x, w = _aligned(x.float().contiguous()), w.float().contiguous()
     geo = _patch(x.shape, w.shape, bk, stride, padding, True)
     geo.check(x)
     dev = _check_cuda(x, w)
     out = torch.empty(geo.out_shape, dtype=torch.float32, device=dev)
+    om, os_ = (None, None) if out_bits is None else _outputs(
+        geo.out_shape, out_bits, out_block, dev)
     oc = geo.out_shape[3]
-    if not geo.m or not oc:
-        return out
-    ws = torch.empty(geo.nbytes, dtype=torch.uint8, device=dev)
-    ptrs = [ws.data_ptr() + o for o in geo.offsets]
-    with _on(dev):
-        for row0 in range(0, geo.m, geo.rows):
-            rows = min(geo.rows, geo.m - row0)
-            _raise_on(_lib().bfp_conv_patch_launch(
-                x.data_ptr(), w.data_ptr(), *ptrs, out.data_ptr(), row0,
-                rows, int(row0 == 0), *geo.dims, bk, l_i, l_w,
-                mma_tile(rows, oc, bk), _stream(dev)), core)
-            counters[fmt] += 1
-            counters[core] += 1
-    return out
+    if geo.m and oc:
+        ws = torch.empty(geo.nbytes, dtype=torch.uint8, device=dev)
+        ptrs = [ws.data_ptr() + o for o in geo.offsets]
+        with _on(dev):
+            for row0 in range(0, geo.m, geo.rows):
+                rows = min(geo.rows, geo.m - row0)
+                _raise_on(_lib().bfp_conv_patch_launch(
+                    x.data_ptr(), w.data_ptr(), *ptrs, out.data_ptr(),
+                    _ptr(om), _ptr(os_), row0, rows, int(row0 == 0),
+                    *geo.dims, bk, l_i, l_w, out_bits or 0, out_block or 0,
+                    mma_tile(rows, oc, bk), _stream(dev)), family)
+                _count(counters, family, family, out_bits, "_pformat",
+                       layer=layer and row0 == 0)
+    return out if out_bits is None else (om, os_)

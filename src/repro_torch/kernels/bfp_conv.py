@@ -20,30 +20,41 @@ f32 patch matrix.
 
 CPU tensors run the plain version, CUDA tensors launch
 ``csrc/bfp_conv.cu`` or raise.  ``LAUNCHES`` counts kernel launches per
-wrapper, under ``bfp_conv2d_epilogue`` those that ran the epilogue,
-under ``bfp_conv2d_xformat`` the activation format passes and under
-``bfp_conv2d_pformat`` the patch format passes.
+wrapper; under ``bfp_conv2d_epilogue`` the layers that ran the
+epilogue, under ``bfp_conv2d_xformat`` the activation format passes,
+under ``bfp_conv2d_pformat`` the patch format passes, under
+``bfp_conv2d_wformat`` the weight format passes and under
+``bfp_conv2d_oformat`` the output format passes of the mma core's
+routes.
 
 Two cores, chosen by :func:`conv_core` (a pure function of shape and
 policy).  The int8 ``mma.sync`` core (``csrc/bfp_mma.cuh``) takes every
-conv with an f32 output whose ``bk`` is a power of two from 32 to 512,
-whose quantized operands have L <= 8 and whose OC is a multiple of 4:
+conv whose ``bk`` is a power of two from 32 to 512, whose quantized
+operands have L <= 8, whose OC is a multiple of 4 and whose epilogue, if
+any, has an ``out_block`` that is a multiple of 4:
 
-* the weight-prequant and xw-prequant convs when ``bk`` also divides C
-  (:func:`mma_core`).  The prequant conv first block-formats its f32
-  input once per (pixel, channel chunk) with the tile kernels' rules
-  (:func:`bfp_conv2d_xformat`; plain version
+* the convs with x on the wire or formatted to it, when ``bk`` also
+  divides C (:func:`mma_core`).  The prequant conv first block-formats
+  its f32 input once per (pixel, channel chunk) with the tile kernels'
+  rules (:func:`bfp_conv2d_xformat`; plain version
   :func:`bfp_conv2d_xformat_plain`) and runs the core on that wire
-  format;
+  format; the x-prequant conv first block-formats its float weight once
+  per (K-tile, column) (:func:`bfp_conv2d_wformat`; plain version
+  :func:`bfp_conv2d_wformat_plain`) into the prequant sidecar layout;
+  the xw-prequant conv runs the core alone;
 * the inline-weight conv, whatever C (:func:`patch_core`).  One patch
   format pass (:func:`bfp_conv2d_pformat`; plain version
   :func:`bfp_conv2d_pformat_plain`) block-formats the patch matrix per
   (row, K-tile) and the weight per (K-tile, column), the blocks the tile
   kernel forms inline, and the core runs as a 1x1 conv over the patch
-  matrix ``[1, M, 1, Kp]``; one host call launches both.
+  matrix ``[1, M, 1, Kp]``.
 
-Every other conv (x-prequant with float weights, the requantize
-epilogue, L > 8, other blocks, OC % 4 != 0) runs on the tile kernel
+With ``out_bits`` the core's f32 output goes to a scratch tensor and the
+activation format pass formats it per (pixel, ``out_block`` channel
+chunk): the requantize epilogue, with the tile kernel's block rules on
+the tile kernel's accumulator.  Each route issues its passes and the
+core from one host call.  Every other conv (L > 8, other blocks,
+OC % 4 != 0, an ``out_block`` of 1 or 2) runs on the tile kernel
 (``csrc/bfp_tile.cuh``).  The outputs are bit-identical either way; a
 failed build or launch raises, it never falls back to the other core.
 The core's shape rules and launch helpers live in ``kernels._mma``,
@@ -58,44 +69,52 @@ import torch
 
 from repro_torch.core.conv_utils import conv_geometry, im2col
 from repro_torch.kernels._mma import (_INT_MAX, MMA_MAX_BK, MMA_TILES,
-                                      _aligned, _check_cuda, _launch_patch,
-                                      _lib, _on, _patch, _raise_on, _stream,
+                                      _aligned, _check_cuda, _count,
+                                      _launch_patch, _lib, _on, _outputs,
+                                      _patch, _ptr, _raise_on, _stream,
                                       mma_core, mma_tile, patch_core)
 from repro_torch.kernels.bfp_matmul import (Out, _check_wire, _finish_plain,
-                                            _outputs, _pad_k, _ptr,
-                                            _weights_inline, _weights_wire,
-                                            check_epilogue, check_overflow,
-                                            requant_plain, tiled_plain,
-                                            wire_plain)
+                                            _pad_k, _weights_inline,
+                                            _weights_wire, check_epilogue,
+                                            check_overflow, requant_plain,
+                                            tiled_plain, wire_plain)
 
 __all__ = ["bfp_conv2d", "bfp_conv2d_prequant", "bfp_conv2d_xprequant",
            "bfp_conv2d_xwprequant", "bfp_conv2d_xformat", "bfp_conv2d_plain",
            "bfp_conv2d_prequant_plain", "bfp_conv2d_xprequant_plain",
            "bfp_conv2d_xwprequant_plain", "bfp_conv2d_xformat_plain",
-           "bfp_conv2d_pformat", "bfp_conv2d_pformat_plain", "mma_core",
+           "bfp_conv2d_pformat", "bfp_conv2d_pformat_plain",
+           "bfp_conv2d_wformat", "bfp_conv2d_wformat_plain", "mma_core",
            "patch_core", "mma_tile", "conv_core", "MMA_TILES", "LAUNCHES"]
 
 #: kernel launches per wrapper, incremented only where a kernel launches;
-#: ``bfp_conv2d_epilogue`` counts those that ran the fused epilogue,
-#: ``bfp_conv2d_xformat`` the activation format passes and
-#: ``bfp_conv2d_pformat`` the patch format passes
+#: ``bfp_conv2d_epilogue`` counts the layers that ran the requantize
+#: epilogue, ``bfp_conv2d_xformat`` the activation format passes,
+#: ``bfp_conv2d_pformat`` the patch format passes, ``bfp_conv2d_wformat``
+#: the weight format passes and ``bfp_conv2d_oformat`` the output format
+#: passes (the epilogue on the mma core)
 LAUNCHES = {"bfp_conv2d": 0, "bfp_conv2d_prequant": 0,
             "bfp_conv2d_xprequant": 0, "bfp_conv2d_xwprequant": 0,
             "bfp_conv2d_epilogue": 0, "bfp_conv2d_xformat": 0,
-            "bfp_conv2d_pformat": 0}
+            "bfp_conv2d_pformat": 0, "bfp_conv2d_wformat": 0,
+            "bfp_conv2d_oformat": 0}
 
 
 def conv_core(wire_x: bool, prequant_w: bool, bk: int, c: int, n: int,
               l_i: int, out_bits: Optional[int] = None,
-              l_w: Optional[int] = None) -> str:
+              l_w: Optional[int] = None,
+              out_block: Optional[int] = None) -> str:
     """"mma" or "tile": the core a conv call of this mode runs on.
     ``l_w`` is the L of float weights quantized in the call (None: the
-    same as ``l_i``)."""
+    same as ``l_i``); ``out_bits``/``out_block`` the epilogue's."""
+    l_w = l_i if l_w is None else l_w
     if prequant_w:
-        on_mma = mma_core(bk, c, n, out_bits, None if wire_x else l_i)
+        on_mma = mma_core(bk, c, n, out_bits, None if wire_x else l_i,
+                          out_block)
+    elif wire_x:
+        on_mma = mma_core(bk, c, n, out_bits, l_w, out_block)
     else:
-        on_mma = not wire_x and patch_core(
-            bk, n, out_bits, l_i, l_i if l_w is None else l_w)
+        on_mma = patch_core(bk, n, out_bits, l_i, l_w, out_block)
     return "mma" if on_mma else "tile"
 
 
@@ -142,13 +161,24 @@ def bfp_conv2d_pformat_plain(x: torch.Tensor, w_hwio: torch.Tensor, l_i: int,
     (row, K-tile), and the float GEMM-view weight per (K-tile, column),
     with the kernels' block rules -> (int8 [M, Kp], f32 steps [M, n_k],
     int8 [Kp, OC], f32 steps [n_k, OC])."""
-    kh, kw, c, oc = w_hwio.shape
+    kh, kw, _, _ = w_hwio.shape
     cols, _ = im2col(x.float(), kh, kw, stride, padding)
+    wm, ws = bfp_conv2d_wformat_plain(w_hwio, l_w, bk)
+    xm, xs = requant_plain(_pad_k(cols, wm.shape[0], 1), l_i, bk)
+    return xm, xs, wm, ws
+
+
+def bfp_conv2d_wformat_plain(w_hwio: torch.Tensor, l_w: int,
+                             bk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the weight format pass (the patch format pass's
+    weight half): the float GEMM-view weight, zero-padded to Kp = n_k *
+    ``bk``, block-formatted per (K-tile, column) with the kernels' block
+    rules -> (int8 [Kp, OC], f32 steps [n_k, OC]), the prequant sidecar
+    layout."""
+    kh, kw, c, oc = w_hwio.shape
     mw, sw = _weights_inline(w_hwio.reshape(kh * kw * c, oc), l_w, bk)
     n_k = mw.shape[0]
-    xm, xs = requant_plain(_pad_k(cols, n_k * bk, 1), l_i, bk)
-    return (xm, xs, mw.to(torch.int8).reshape(n_k * bk, oc),
-            sw.reshape(n_k, oc))
+    return mw.to(torch.int8).reshape(n_k * bk, oc), sw.reshape(n_k, oc)
 
 
 def _wire_patches(xm: torch.Tensor, xs: torch.Tensor, kh: int, kw: int,
@@ -226,26 +256,52 @@ def _launch_xformat(x: torch.Tensor, l_i: int,
     return xm, xs
 
 
-def _launch_mma(xm, xs, wm, ws, bk, stride, padding, name) -> torch.Tensor:
-    """The int8 mma core on wire-format x and prequant w -> f32 NHWC."""
-    b, h, wd, c = xm.shape
-    kh, kw, _, oc = wm.shape
+def _launch_mma(xm, xs, wm, ws, bk, stride, padding, name, *, x=None,
+                w=None, l_i=8, l_w=8, out_bits=None, out_block=None) -> Out:
+    """The int8 mma core on wire-format x and w -> f32 NHWC, with the
+    passes of ``bfp_conv_mma_launch`` around it in the same host call:
+    an f32 NHWC ``x`` (for None ``xm``/``xs``) is formatted into scratch
+    first (L = ``l_i``), a float HWIO ``w`` (for None ``wm``/``ws``) into
+    a scratch sidecar [K, OC] + [K // bk, OC] (L = ``l_w``), and with
+    ``out_bits`` the f32 output (then scratch) is formatted into the
+    returned wire pair."""
+    b, h, wd, c = (xm if x is None else x).shape
+    kh, kw, _, oc = (wm if w is None else w).shape
     oh, ow, (pt, _), (pl, _) = conv_geometry(h, wd, kh, kw, stride, padding)
-    rows = b * oh * ow
-    if max(rows, xm.numel(), kh * kw * c * oc) > _INT_MAX:
-        raise ValueError(f"conv {tuple(xm.shape)} * {tuple(wm.shape)} "
+    rows, k = b * oh * ow, kh * kw * c
+    if max(rows, b * h * wd * c, k * oc) > _INT_MAX:
+        raise ValueError(f"conv {(b, h, wd, c)} * {(kh, kw, c, oc)} "
                          f"exceeds the kernel's int32 indexing")
-    xm, wm = _aligned(xm), _aligned(wm)
-    dev = _check_cuda(xm, xs, wm, ws)
+    passes = ()
+    if x is None:
+        xm = _aligned(xm)
+    else:
+        x = _aligned(x.float().contiguous())
+        xm = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        xs = torch.empty((b, h, wd, c // bk), dtype=torch.float32,
+                         device=x.device)
+        passes = ("_xformat",)
+    if w is None:
+        wm = _aligned(wm)
+    else:
+        w = w.float().contiguous()
+        wm = torch.empty((k, oc), dtype=torch.int8, device=w.device)
+        ws = torch.empty((k // bk, oc), dtype=torch.float32, device=w.device)
+        passes = ("_wformat",)
+    dev = _check_cuda(xm, xs, wm, ws, x, w)
     out = torch.empty((b, oh, ow, oc), dtype=torch.float32, device=dev)
+    om, os_ = (None, None) if out_bits is None else _outputs(
+        out.shape, out_bits, out_block, dev)
     if rows and oc:
         with _on(dev):
             _raise_on(_lib().bfp_conv_mma_launch(
-                xm.data_ptr(), xs.data_ptr(), wm.data_ptr(), ws.data_ptr(),
-                out.data_ptr(), b, h, wd, c, kh, kw, oc, stride, oh, ow, pt,
-                pl, bk, mma_tile(rows, oc, bk), _stream(dev)), name)
-        LAUNCHES[name] += 1
-    return out
+                _ptr(x), _ptr(w), xm.data_ptr(), xs.data_ptr(),
+                wm.data_ptr(), ws.data_ptr(), out.data_ptr(), _ptr(om),
+                _ptr(os_), b, h, wd, c, kh, kw, oc, stride, oh, ow, pt, pl,
+                bk, l_i, l_w, out_bits or 0, out_block or 0,
+                mma_tile(rows, oc, bk), _stream(dev)), name)
+        _count(LAUNCHES, "bfp_conv2d", name, out_bits, *passes)
+    return out if out_bits is None else (om, os_)
 
 
 def _launch_pformat(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
@@ -268,6 +324,28 @@ def _launch_pformat(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
                 "bfp_conv2d_pformat")
         LAUNCHES["bfp_conv2d_pformat"] += 1
     return outs
+
+
+def _launch_wformat(w: torch.Tensor, l_w: int, bk: int):
+    """The weight format pass alone (the patch format pass with no patch
+    rows) -> the two tensors of :func:`bfp_conv2d_wformat_plain`."""
+    w = w.float().contiguous()
+    dev = _check_cuda(w)
+    kh, kw, c, oc = w.shape
+    n_k = -(-kh * kw * c // bk)
+    if n_k * bk * oc > _INT_MAX:
+        raise ValueError(f"weight {tuple(w.shape)} exceeds the kernel's "
+                         f"int32 indexing")
+    wm = torch.empty((n_k * bk, oc), dtype=torch.int8, device=dev)
+    ws = torch.empty((n_k, oc), dtype=torch.float32, device=dev)
+    if oc:
+        with _on(dev):
+            _raise_on(_lib().bfp_conv_pformat_launch(
+                None, w.data_ptr(), None, None, wm.data_ptr(),
+                ws.data_ptr(), 0, 0, 1, 1, 1, c, kh, kw, oc, 1, 1, 1, 0, 0,
+                bk, l_w, l_w, _stream(dev)), "bfp_conv2d_wformat")
+        LAUNCHES["bfp_conv2d_wformat"] += 1
+    return wm, ws
 
 
 def _launch(x, xs, w, ws, l_i, l_w, bk, stride, padding, out_bits,
@@ -338,9 +416,9 @@ def bfp_conv2d(x: torch.Tensor, w_hwio: torch.Tensor, *, l_i: int, l_w: int,
     if x.device.type == "cpu":
         return bfp_conv2d_plain(x, w_hwio, l_i, l_w, bk, stride, padding,
                                 out_bits, out_block)
-    if patch_core(bk, w_hwio.shape[3], out_bits, l_i, l_w):
+    if patch_core(bk, w_hwio.shape[3], out_bits, l_i, l_w, out_block):
         return _launch_patch(x, w_hwio, l_i, l_w, bk, stride, padding,
-                             LAUNCHES, "bfp_conv2d_pformat", "bfp_conv2d")
+                             LAUNCHES, "bfp_conv2d", out_bits, out_block)
     return _launch(x.float().contiguous(), None, w_hwio.float().contiguous(),
                    None, l_i, l_w, bk, stride, padding, out_bits, out_block,
                    "bfp_conv2d")
@@ -366,6 +444,24 @@ def bfp_conv2d_pformat(x: torch.Tensor, w_hwio: torch.Tensor, *, l_i: int,
     return _launch_pformat(x, w_hwio, l_i, l_w, bk, stride, padding)
 
 
+def bfp_conv2d_wformat(w_hwio: torch.Tensor, *, l_w: int,
+                       bk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weight format pass on its own (what the x-prequant conv runs
+    before the mma core): float HWIO w -> (int8 mantissas [Kp, OC], f32
+    steps [n_k, OC]), one block per (K-tile, column), the tile kernel's
+    block rules, in the prequant sidecar layout; Kp = n_k * ``bk``."""
+    if w_hwio.ndim != 4:
+        raise ValueError(f"expected HWIO w, got {tuple(w_hwio.shape)}")
+    if not (32 <= bk <= MMA_MAX_BK and bk & (bk - 1) == 0
+            and 2 <= l_w <= 8):
+        raise ValueError(f"weight format pass needs a power-of-two bk from "
+                         f"32 to {MMA_MAX_BK} and L <= 8 (int8 mantissas), "
+                         f"got bk={bk}, L={l_w}")
+    if w_hwio.device.type == "cpu":
+        return bfp_conv2d_wformat_plain(w_hwio, l_w, bk)
+    return _launch_wformat(w_hwio, l_w, bk)
+
+
 def bfp_conv2d_prequant(x: torch.Tensor, wm_hwio: torch.Tensor,
                         ws: torch.Tensor, *, l_i: int, l_w: int, bk: int,
                         stride: int = 1, padding: str = "SAME",
@@ -381,11 +477,18 @@ def bfp_conv2d_prequant(x: torch.Tensor, wm_hwio: torch.Tensor,
     if x.device.type == "cpu":
         return bfp_conv2d_prequant_plain(x, wm_hwio, ws, l_i, l_w, bk, stride,
                                          padding, out_bits, out_block)
-    if mma_core(bk, x.shape[3], wm_hwio.shape[3], out_bits, l_i):
-        xm, xs = _launch_xformat(x, l_i, bk)
-        return _launch_mma(xm, xs, wm_hwio.contiguous(),
-                           ws.float().contiguous(), bk, stride, padding,
-                           "bfp_conv2d_prequant")
+    if mma_core(bk, x.shape[3], wm_hwio.shape[3], out_bits, l_i,
+                out_block):
+        wm, ws = wm_hwio.contiguous(), ws.float().contiguous()
+        if out_bits is None:
+            # the served route keeps its two host calls (the pass, then
+            # the core); passing x to the core's call would fold them
+            xm, xs = _launch_xformat(x, l_i, bk)
+            return _launch_mma(xm, xs, wm, ws, bk, stride, padding,
+                               "bfp_conv2d_prequant")
+        return _launch_mma(None, None, wm, ws, bk, stride, padding,
+                           "bfp_conv2d_prequant", x=x, l_i=l_i,
+                           out_bits=out_bits, out_block=out_block)
     return _launch(x.float().contiguous(), None, wm_hwio.contiguous(),
                    ws.float().contiguous(), l_i, l_w, bk, stride, padding,
                    out_bits, out_block, "bfp_conv2d_prequant")
@@ -407,6 +510,11 @@ def bfp_conv2d_xprequant(xm: torch.Tensor, xs: torch.Tensor,
         return bfp_conv2d_xprequant_plain(xm, xs, w_hwio, l_i, l_w, bk,
                                           stride, padding, out_bits,
                                           out_block)
+    if mma_core(bk, xm.shape[3], w_hwio.shape[3], out_bits, l_w, out_block):
+        return _launch_mma(xm.contiguous(), xs.float().contiguous(), None,
+                           None, bk, stride, padding, "bfp_conv2d_xprequant",
+                           w=w_hwio, l_w=l_w, out_bits=out_bits,
+                           out_block=out_block)
     return _launch(xm.contiguous(), xs.float().contiguous(),
                    w_hwio.float().contiguous(), None, l_i, l_w, bk, stride,
                    padding, out_bits, out_block, "bfp_conv2d_xprequant")
@@ -430,10 +538,12 @@ def bfp_conv2d_xwprequant(xm: torch.Tensor, xs: torch.Tensor,
         return bfp_conv2d_xwprequant_plain(xm, xs, wm_hwio, ws, l_i, l_w, bk,
                                            stride, padding, out_bits,
                                            out_block)
-    if mma_core(bk, xm.shape[3], wm_hwio.shape[3], out_bits):
+    if mma_core(bk, xm.shape[3], wm_hwio.shape[3], out_bits,
+                out_block=out_block):
         return _launch_mma(xm.contiguous(), xs.float().contiguous(),
                            wm_hwio.contiguous(), ws.float().contiguous(), bk,
-                           stride, padding, "bfp_conv2d_xwprequant")
+                           stride, padding, "bfp_conv2d_xwprequant",
+                           out_bits=out_bits, out_block=out_block)
     return _launch(xm.contiguous(), xs.float().contiguous(),
                    wm_hwio.contiguous(), ws.float().contiguous(), l_i, l_w,
                    bk, stride, padding, out_bits, out_block,

@@ -16,24 +16,28 @@ other, nor from one core to the other.  Two cores, chosen by
 :func:`matmul_core` (a pure function of shape and policy):
 
 * the int8 ``mma.sync`` core of the convs (``csrc/bfp_mma.cuh``, built
-  into ``csrc/bfp_conv.cu``) takes the matmuls with f32 x and an f32
-  output that it can run as the 1x1, stride-1, unpadded conv over x
-  viewed as ``[1, B, 1, K]`` and w as ``[1, 1, K, N]``: a (row, K-tile)
-  block of the matmul is a (pixel, channel chunk) block of that conv,
-  and the weight sidecar ``[K // bk, N]`` has the same layout in both.
+  into ``csrc/bfp_conv.cu``) takes the matmuls with f32 x that it can
+  run as the 1x1, stride-1, unpadded conv over x viewed as
+  ``[1, B, 1, K]`` and w as ``[1, 1, K, N]``: a (row, K-tile) block of
+  the matmul is a (pixel, channel chunk) block of that conv, and the
+  weight sidecar ``[K // bk, N]`` has the same layout in both.
   ``bfp_matmul_prequant`` runs the conv's activation format pass and
   then the core, from one host call; ``bfp_matmul`` (float weights) the
-  inline conv's patch format pass and then the core;
+  inline conv's patch format pass and then the core.  With ``out_bits``
+  (an ``out_block`` that is a multiple of 4) the output format pass
+  follows in the same host call: the activation format pass over the
+  f32 output in ``out_block`` chunks, the requantize epilogue;
 * the tile kernel (``csrc/bfp_matmul.cu``) takes the rest: the
-  requantize epilogue, the wire-format x of the x- and xw-prequant
-  matmuls, L > 8, blocks that are not a power of two from 32 to 512, and
-  N % 4 != 0.
+  wire-format x of the x- and xw-prequant matmuls, L > 8, blocks that
+  are not a power of two from 32 to 512, N % 4 != 0 and an ``out_block``
+  of 1 or 2.
 
 The outputs are bit-identical on both.  ``LAUNCHES`` counts kernel
 launches per wrapper (a core launch under the wrapper's own name), under
-``bfp_matmul_epilogue`` the launches that ran the fused epilogue, under
-``bfp_matmul_xformat`` the activation format passes and under
-``bfp_matmul_pformat`` the patch format passes.
+``bfp_matmul_epilogue`` the calls that ran the requantize epilogue, under
+``bfp_matmul_xformat`` the activation format passes, under
+``bfp_matmul_pformat`` the patch format passes and under
+``bfp_matmul_oformat`` the output format passes.
 """
 from __future__ import annotations
 
@@ -46,8 +50,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.bfp import ZERO_BLOCK_EXP, pow2
 from repro_torch.kernels import _build, _mma
-from repro_torch.kernels._mma import (_INT_MAX, _check_cuda, mma_core,
-                                      patch_core)
+from repro_torch.kernels._mma import (_INT_MAX, _check_cuda, _outputs,
+                                      _ptr, mma_core, patch_core)
 
 __all__ = ["bfp_matmul", "bfp_matmul_prequant", "bfp_matmul_xprequant",
            "bfp_matmul_xwprequant", "bfp_matmul_plain",
@@ -56,16 +60,18 @@ __all__ = ["bfp_matmul", "bfp_matmul_prequant", "bfp_matmul_xprequant",
            "check_epilogue", "matmul_core", "EPILOGUE_COLS", "LAUNCHES"]
 
 #: kernel launches per wrapper, incremented only where a kernel launches;
-#: ``bfp_matmul_epilogue`` counts those that ran the fused epilogue,
-#: ``bfp_matmul_xformat`` the activation format passes and
-#: ``bfp_matmul_pformat`` the patch format passes of the mma core's route
+#: ``bfp_matmul_epilogue`` counts the calls that ran the requantize
+#: epilogue, ``bfp_matmul_xformat`` the activation format passes,
+#: ``bfp_matmul_pformat`` the patch format passes and
+#: ``bfp_matmul_oformat`` the output format passes of the mma core's route
 LAUNCHES = {"bfp_matmul": 0, "bfp_matmul_prequant": 0,
             "bfp_matmul_xprequant": 0, "bfp_matmul_xwprequant": 0,
             "bfp_matmul_epilogue": 0, "bfp_matmul_xformat": 0,
-            "bfp_matmul_pformat": 0}
+            "bfp_matmul_pformat": 0, "bfp_matmul_oformat": 0}
 
-#: the column tile of the epilogue kernels (``bfp_tile.cuh`` EPI_COLS): an
-#: epilogue block must divide it, so each block lies in one thread block
+#: the column tile of the tile kernel's epilogue (``bfp_tile.cuh``
+#: EPI_COLS): an epilogue block must divide it, so each block lies in one
+#: thread block (repro's ops hold the fused epilogue to the same rule)
 EPILOGUE_COLS = 128
 
 #: f32 holds every integer of magnitude <= 2^24 exactly
@@ -100,22 +106,23 @@ def check_epilogue(out_bits: Optional[int], out_block: Optional[int],
 
 
 def matmul_core(prequant_w: bool, bk: int, k: int, n: int, l_i: int,
-                l_w: int, out_bits: Optional[int] = None) -> str:
+                l_w: int, out_bits: Optional[int] = None,
+                out_block: Optional[int] = None) -> str:
     """"mma" or "tile": the core a matmul with f32 x takes.  As the 1x1
     conv over ``[1, B, 1, K]``: prequant weights take the mma core where
     the prequant conv does (``_mma.mma_core``, C = K), float weights where
-    the inline conv does (``_mma.patch_core``); both need Kp * N within
-    the core's int32 indexing (Kp: K rounded up to a ``bk`` multiple).
-    B sets no condition: past 2^31 elements x is cut into row blocks.
-    The wire-format matmuls (x- and xw-prequant) stay on the tile
-    kernel."""
+    the inline conv does (``_mma.patch_core``), the epilogue included;
+    both need Kp * N within the core's int32 indexing (Kp: K rounded up to
+    a ``bk`` multiple).  B sets no condition: past 2^31 elements x is cut
+    into row blocks.  The wire-format matmuls (x- and xw-prequant) stay on
+    the tile kernel."""
     kp = -(-k // bk) * bk
     if k < 1 or kp * n > _INT_MAX:
         return "tile"
     if prequant_w:
-        on_mma = mma_core(bk, k, n, out_bits, l_i)
+        on_mma = mma_core(bk, k, n, out_bits, l_i, out_block)
     else:
-        on_mma = patch_core(bk, n, out_bits, l_i, l_w)
+        on_mma = patch_core(bk, n, out_bits, l_i, l_w, out_block)
     return "mma" if on_mma else "tile"
 
 
@@ -289,19 +296,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _outputs(shape, out_bits, out_block, dev):
-    """Kernel outputs: f32 ``shape``, or int8 ``shape`` + f32 steps."""
-    if out_bits is None:
-        return torch.empty(shape, dtype=torch.float32, device=dev), None
-    return (torch.empty(shape, dtype=torch.int8, device=dev),
-            torch.empty((*shape[:-1], shape[-1] // out_block),
-                        dtype=torch.float32, device=dev))
-
-
 def _launch(x, xs, w, ws, l_i, l_w, bk, out_bits, out_block, name) -> Out:
     m, k = x.shape
     n = w.shape[1]
@@ -328,55 +322,71 @@ def _launch(x, xs, w, ws, l_i, l_w, bk, out_bits, out_block, name) -> Out:
 
 
 def _launch_mma(x: torch.Tensor, wm: torch.Tensor, ws: torch.Tensor,
-                l_i: int, bk: int) -> torch.Tensor:
+                l_i: int, bk: int, out_bits: Optional[int] = None,
+                out_block: Optional[int] = None) -> Out:
     """The prequant matmul on the mma core: per block of rows, one host
     call that launches the activation format pass (x per (row, K-tile)
-    into a workspace of int8 mantissas and f32 steps) and the core as the
-    1x1 conv over ``[1, rows, 1, K]``.  Rows are cut into blocks only
-    where rows * K would pass the int32 indexing (never when served)."""
+    into a workspace of int8 mantissas and f32 steps), the core as the
+    1x1 conv over ``[1, rows, 1, K]`` and, with ``out_bits``, the output
+    format pass over those rows (the f32 output is then scratch).  Rows
+    are cut into blocks only where rows * K would pass the int32
+    indexing (never when served)."""
     x = _mma._aligned(x.float().contiguous())
     wm, ws = _mma._aligned(wm.contiguous()), ws.float().contiguous()
     dev = _check_cuda(x, wm, ws)
     m, k = x.shape
     n = wm.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    if not m or not n:
-        return out
-    rows = min(m, _INT_MAX // k)
-    xs_at = -(-rows * k // 16) * 16
-    buf = torch.empty(xs_at + 4 * rows * (k // bk), dtype=torch.uint8,
-                      device=dev)
-    with _mma._on(dev):
-        for row0 in range(0, m, rows):
-            r = min(rows, m - row0)
-            _mma._raise_on(_mma._lib().bfp_matmul_mma_launch(
-                x.data_ptr() + 4 * row0 * k, wm.data_ptr(), ws.data_ptr(),
-                buf.data_ptr(), buf.data_ptr() + xs_at,
-                out.data_ptr() + 4 * row0 * n, r, n, k, bk, l_i,
-                _mma.mma_tile(r, n, bk), _mma._stream(dev)),
-                "bfp_matmul_prequant")
-            LAUNCHES["bfp_matmul_xformat"] += 1
-            LAUNCHES["bfp_matmul_prequant"] += 1
-    return out
+    om, os_ = (None, None) if out_bits is None else _outputs(
+        (m, n), out_bits, out_block, dev)
+    if m and n:
+        rows = min(m, _INT_MAX // k)
+        xs_at = -(-rows * k // 16) * 16
+        buf = torch.empty(xs_at + 4 * rows * (k // bk), dtype=torch.uint8,
+                          device=dev)
+        n_ob = n // out_block if out_bits is not None else 0
+        with _mma._on(dev):
+            for row0 in range(0, m, rows):
+                r = min(rows, m - row0)
+                _mma._raise_on(_mma._lib().bfp_matmul_mma_launch(
+                    x.data_ptr() + 4 * row0 * k, wm.data_ptr(),
+                    ws.data_ptr(), buf.data_ptr(), buf.data_ptr() + xs_at,
+                    out.data_ptr() + 4 * row0 * n,
+                    om.data_ptr() + row0 * n if om is not None else None,
+                    os_.data_ptr() + 4 * row0 * n_ob if om is not None
+                    else None, r, n, k, bk, l_i, out_bits or 0,
+                    out_block or 0, _mma.mma_tile(r, n, bk),
+                    _mma._stream(dev)), "bfp_matmul_prequant")
+                _mma._count(LAUNCHES, "bfp_matmul", "bfp_matmul_prequant",
+                            out_bits, "_xformat", layer=row0 == 0)
+    return out if out_bits is None else (om, os_)
 
 
 def _launch_patch(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
-                  bk: int) -> torch.Tensor:
+                  bk: int, out_bits: Optional[int] = None,
+                  out_block: Optional[int] = None, layer: bool = True) -> Out:
     """The inline matmul on the mma core: the inline conv's route (patch
-    format pass, then the core; one host call) over x viewed as
-    ``[1, B, 1, K]`` and w as ``[1, 1, K, N]``, stride 1, VALID.  The
-    pass indexes x with 32 bits, so an x of more than 2^31 elements runs
-    as row blocks, each its own 1x1 conv (never when served)."""
+    format pass, the core and with ``out_bits`` the output format pass;
+    one host call) over x viewed as ``[1, B, 1, K]`` and w as
+    ``[1, 1, K, N]``, stride 1, VALID.  The pass indexes x with 32 bits,
+    so an x of more than 2^31 elements runs as row blocks, each its own
+    1x1 conv (never when served)."""
     m, k = x.shape
     n = w.shape[1]
     rows = _INT_MAX // (-(-k // bk) * bk)
     if m > rows:
-        return torch.cat([_launch_patch(x[r0:r0 + rows], w, l_i, l_w, bk)
-                          for r0 in range(0, m, rows)])
+        parts = [_launch_patch(x[r0:r0 + rows], w, l_i, l_w, bk, out_bits,
+                               out_block, layer and r0 == 0)
+                 for r0 in range(0, m, rows)]
+        if out_bits is None:
+            return torch.cat(parts)
+        return tuple(torch.cat(p) for p in zip(*parts))
     out = _mma._launch_patch(x.reshape(1, m, 1, k), w.reshape(1, 1, k, n),
                              l_i, l_w, bk, 1, "VALID", LAUNCHES,
-                             "bfp_matmul_pformat", "bfp_matmul")
-    return out.reshape(m, n)
+                             "bfp_matmul", out_bits, out_block, layer)
+    if out_bits is None:
+        return out.reshape(m, n)
+    return out[0].reshape(m, n), out[1].reshape(m, n // out_block)
 
 
 def _check_operands(x_shape, w_shape, bk, xs=None, ws=None) -> None:
@@ -403,9 +413,9 @@ def bfp_matmul(x: torch.Tensor, w: torch.Tensor, *, l_i: int, l_w: int,
     check_epilogue(out_bits, out_block, w.shape[1])
     if x.device.type == "cpu":
         return bfp_matmul_plain(x, w, l_i, l_w, bk, out_bits, out_block)
-    if matmul_core(False, bk, x.shape[1], w.shape[1], l_i, l_w,
-                   out_bits) == "mma":
-        return _launch_patch(x, w, l_i, l_w, bk)
+    if matmul_core(False, bk, x.shape[1], w.shape[1], l_i, l_w, out_bits,
+                   out_block) == "mma":
+        return _launch_patch(x, w, l_i, l_w, bk, out_bits, out_block)
     return _launch(x.float().contiguous(), None, w.float().contiguous(),
                    None, l_i, l_w, bk, out_bits, out_block, "bfp_matmul")
 
@@ -423,9 +433,9 @@ def bfp_matmul_prequant(x: torch.Tensor, wm: torch.Tensor, ws: torch.Tensor,
     if x.device.type == "cpu":
         return bfp_matmul_prequant_plain(x, wm, ws, l_i, l_w, bk, out_bits,
                                          out_block)
-    if matmul_core(True, bk, x.shape[1], wm.shape[1], l_i, l_w,
-                   out_bits) == "mma":
-        return _launch_mma(x, wm, ws, l_i, bk)
+    if matmul_core(True, bk, x.shape[1], wm.shape[1], l_i, l_w, out_bits,
+                   out_block) == "mma":
+        return _launch_mma(x, wm, ws, l_i, bk, out_bits, out_block)
     return _launch(x.float().contiguous(), None, wm.contiguous(),
                    ws.float().contiguous(), l_i, l_w, bk, out_bits,
                    out_block, "bfp_matmul_prequant")

@@ -1,13 +1,19 @@
 // BFP convolution for Hopper (sm_90a).  Two cores share this library:
-// the weight-prequant modes with f32 output run on the int8 mma.sync core
-// of bfp_mma.cuh after its activation format pass (bfp_conv_xformat_launch,
-// bfp_conv_mma_launch; that header's note states its design), and so does
-// the inline-weight conv with f32 output, after the patch format pass of
-// bfp_pformat.cuh (bfp_conv_patch_launch: the pass, then the core as a
-// 1x1 conv over the patch matrix); every other conv mode runs on the tile
-// kernel, as follows.  The f32-output matmuls run on the same core as
-// 1x1 convs: bfp_matmul_mma_launch below for prequant weights, and
-// bfp_conv_patch_launch over x viewed as [1, B, 1, K] for float weights.
+// the weight-prequant modes run on the int8 mma.sync core of bfp_mma.cuh
+// after its activation format pass (bfp_conv_xformat_launch,
+// bfp_conv_mma_launch; that header's note states its design); so does
+// the inline-weight conv, after the patch format pass of bfp_pformat.cuh
+// (bfp_conv_patch_launch: the pass, then the core as a 1x1 conv over the
+// patch matrix), and the x-prequant conv with float weights, after that
+// pass's weight blocks alone (bfp_conv_mma_launch with w).  The matmuls
+// with f32 x run on the same core as 1x1 convs: bfp_matmul_mma_launch
+// below for prequant weights, and bfp_conv_patch_launch over x viewed as
+// [1, B, 1, K] for float weights.  With out_bits, each of these routes
+// ends in the requantize epilogue as a third pass: the activation format
+// pass over the core's f32 output in out_block chunks (oformat below).
+// L > 8, blocks that are not a power of two from 32 to 512, OC % 4 != 0,
+// an out_block that is not a multiple of 4 and the wire-format matmuls
+// run on the tile kernel, as follows.
 //
 // Fused implicit-im2col BFP convolution on the tile kernel:
 // NHWC x [B, H, W, C] (*) HWIO w [KH, KW, C, OC] -> f32 [B, OH, OW, OC],
@@ -33,10 +39,10 @@
 // are operations-bound.  The tile kernel runs __dp4a on the CUDA cores
 // and gathers every receptive-field element from global memory
 // (L2-resident) once or twice per output-channel tile, so it sits far
-// above either bound.  The convs with an f32 output left it for the mma
-// core (x formatted once per pixel chunk or per patch block, int8 tensor
-// cores); the x-prequant conv with float weights, the epilogue and
-// L > 8 are still on it.
+// above either bound.  The convs with L <= 8 and power-of-two blocks left
+// it for the mma core (x formatted once per pixel chunk or per patch
+// block, w once per call, int8 tensor cores, the epilogue as a pass over
+// the f32 output).
 //
 // Padding is never materialized: an output pixel's receptive field
 // starts at (oh*S - PT, ow*S - PL) and reads outside the input are zero
@@ -92,11 +98,28 @@ bfp_pformat::Params pformat_params(const void* x, const void* w, void* xm,
   return p;
 }
 
+// The requantize epilogue on the mma core's routes: the activation format
+// pass over the core's f32 output [rows, N], one block per (row, out_block
+// chunk).  A row-major row's out_block chunks are contiguous, so these are
+// the tile kernel's epilogue blocks (bfp_tile.cuh EPI), with its block
+// rules; the f32 output is the tile kernel's accumulator bit for bit.  No
+// pass when out_bits == 0.
+int oformat(const float* out, void* om, void* os, long long rows, int N,
+            int out_bits, int out_block, cudaStream_t s) {
+  if (!out_bits) return 0;
+  if (out_block < 4 || N % out_block) return (int)cudaErrorInvalidValue;
+  return bfp_mma::launch_xformat(out, static_cast<int8_t*>(om),
+                                 static_cast<float*>(os),
+                                 rows * (N / out_block), out_block, out_bits,
+                                 s);
+}
+
 }  // namespace
 
 // The patch format pass alone: patch rows [row0, row0 + rows) of the f32
 // NHWC x -> int8 [rows, Kp] + f32 steps [rows, n_k]; with with_w, the f32
-// GEMM-view weight [K, OC] -> int8 [Kp, OC] + f32 steps [n_k, OC].
+// GEMM-view weight [K, OC] -> int8 [Kp, OC] + f32 steps [n_k, OC].  With
+// rows = 0 and with_w, the weight blocks alone (x, xm and xs unread).
 extern "C" int bfp_conv_pformat_launch(const void* x, const void* w,
                                        void* xm, void* xs, void* wm,
                                        void* ws, int row0, int rows,
@@ -112,17 +135,20 @@ extern "C" int bfp_conv_pformat_launch(const void* x, const void* w,
       static_cast<cudaStream_t>(stream));
 }
 
-// The inline conv with an f32 output on the mma core, for patch rows
-// [row0, row0 + rows): the patch format pass into xm/xs (and wm/ws when
-// with_w), then the core as a 1x1 conv over [1, rows, 1, Kp] into rows
-// [row0, row0 + rows) of out [M, OC].  Two launches, one host call.
+// The inline conv on the mma core, for patch rows [row0, row0 + rows):
+// the patch format pass into xm/xs (and wm/ws when with_w), then the core
+// as a 1x1 conv over [1, rows, 1, Kp] into rows [row0, row0 + rows) of
+// the f32 out [M, OC]; with out_bits, then the output format pass over
+// those rows into om [M, OC] and os [M, OC / out_block].  Two or three
+// launches, one host call.
 extern "C" int bfp_conv_patch_launch(const void* x, const void* w, void* xm,
                                      void* xs, void* wm, void* ws, void* out,
-                                     int row0, int rows, int with_w, int H,
-                                     int W, int C, int KH, int KW, int OC,
-                                     int stride, int OH, int OW, int pad_top,
-                                     int pad_left, int bk, int l_i, int l_w,
-                                     int tile, void* stream) {
+                                     void* om, void* os, int row0, int rows,
+                                     int with_w, int H, int W, int C, int KH,
+                                     int KW, int OC, int stride, int OH,
+                                     int OW, int pad_top, int pad_left,
+                                     int bk, int l_i, int l_w, int out_bits,
+                                     int out_block, int tile, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc = bfp_pformat::launch(
       pformat_params(x, w, xm, xs, wm, ws, row0, rows, with_w, H, W, C, KH,
@@ -148,7 +174,12 @@ extern "C" int bfp_conv_patch_launch(const void* x, const void* w, void* xm,
   p.S = 1;
   p.OH = rows;
   p.OW = 1;
-  return bfp_mma::launch_conv(p, tile, s);
+  const int rc2 = bfp_mma::launch_conv(p, tile, s);
+  if (rc2 || !out_bits) return rc2;
+  const long long r0 = row0;
+  return oformat(p.out, static_cast<int8_t*>(om) + r0 * OC,
+                 static_cast<float*>(os) + r0 * (OC / out_block), rows, OC,
+                 out_bits, out_block, s);
 }
 
 // The weight-prequant matmul with an f32 output on the mma core: f32 x
@@ -175,10 +206,15 @@ extern "C" int bfp_conv_patch_launch(const void* x, const void* w, void* xm,
 // through a 3-stage ring of 4 KB weight tiles, too few bytes are in
 // flight for HBM's full rate; a skinny-M tile or an order-keeping split-K
 // would add them.
+// With out_bits, the output format pass follows the core (om [M, N], os
+// [M, N / out_block]): the requantize epilogue of bfp_matmul_prequant, in
+// the same host call.
 extern "C" int bfp_matmul_mma_launch(const void* x, const void* wm,
                                      const void* ws, void* xm, void* xs,
-                                     void* out, int M, int N, int K, int bk,
-                                     int l_i, int tile, void* stream) {
+                                     void* out, void* om, void* os, int M,
+                                     int N, int K, int bk, int l_i,
+                                     int out_bits, int out_block, int tile,
+                                     void* stream) {
   if (bk < 1 || K % bk) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc = bfp_mma::launch_xformat(
@@ -202,17 +238,47 @@ extern "C" int bfp_matmul_mma_launch(const void* x, const void* wm,
   p.S = 1;
   p.OH = M;
   p.OW = 1;
-  return bfp_mma::launch_conv(p, tile, s);
+  const int rc2 = bfp_mma::launch_conv(p, tile, s);
+  if (rc2) return rc2;
+  return oformat(p.out, om, os, M, N, out_bits, out_block, s);
 }
 
-// The conv with both operands in the wire format (x: the format pass's
-// output or a previous layer's epilogue) on the int8 mma core -> f32.
-extern "C" int bfp_conv_mma_launch(const void* xm, const void* xs,
-                                   const void* wm, const void* ws, void* out,
-                                   int B, int H, int W, int C, int KH, int KW,
-                                   int OC, int stride, int OH, int OW,
-                                   int pad_top, int pad_left, int bk,
-                                   int tile, void* stream) {
+// The conv on the int8 mma core with x in the wire format (the format
+// pass's output or a previous layer's epilogue) -> f32 out [M, OC].  The
+// passes around the core, each in this one host call when asked for:
+//  * x (f32 NHWC, else null): the activation format pass writes it into
+//    xm/xs first (L = l_i): the prequant conv;
+//  * w (f32 GEMM-view weight [K, OC], else null): the patch format pass's
+//    weight blocks alone write it into wm/ws first (L = l_w), once per
+//    call: the x-prequant conv with float weights.  bk | C, so Kp = K and
+//    these are the tile kernel's inline w blocks of that mode, which the
+//    tile kernel formed again for every 64-row output tile;
+//  * out_bits: the output format pass then writes om [M, OC] and os
+//    [M, OC / out_block] from out: the requantize epilogue.
+extern "C" int bfp_conv_mma_launch(const void* x, const void* w, void* xm,
+                                   void* xs, void* wm, void* ws, void* out,
+                                   void* om, void* os, int B, int H, int W,
+                                   int C, int KH, int KW, int OC, int stride,
+                                   int OH, int OW, int pad_top, int pad_left,
+                                   int bk, int l_i, int l_w, int out_bits,
+                                   int out_block, int tile, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x) {
+    if (bk < 1 || C % bk) return (int)cudaErrorInvalidValue;
+    const int rc = bfp_mma::launch_xformat(
+        static_cast<const float*>(x), static_cast<int8_t*>(xm),
+        static_cast<float*>(xs), (long long)B * H * W * (C / bk), bk, l_i,
+        s);
+    if (rc) return rc;
+  }
+  if (w) {
+    const int rc = bfp_pformat::launch(
+        pformat_params(nullptr, w, nullptr, nullptr, wm, ws, 0, 0, 1, H, W,
+                       C, KH, KW, OC, stride, OH, OW, pad_top, pad_left, bk,
+                       l_w, l_w),
+        s);
+    if (rc) return rc;
+  }
   bfp_mma::ConvParams p = {};
   p.xm = static_cast<const int8_t*>(xm);
   p.xs = static_cast<const float*>(xs);
@@ -232,7 +298,9 @@ extern "C" int bfp_conv_mma_launch(const void* xm, const void* xs,
   p.OW = OW;
   p.PT = pad_top;
   p.PL = pad_left;
-  return bfp_mma::launch_conv(p, tile, static_cast<cudaStream_t>(stream));
+  const int rc = bfp_mma::launch_conv(p, tile, s);
+  if (rc) return rc;
+  return oformat(p.out, om, os, p.M, OC, out_bits, out_block, s);
 }
 
 extern "C" int bfp_conv_launch(const void* x, const void* xs, const void* w,

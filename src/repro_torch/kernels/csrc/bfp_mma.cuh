@@ -6,14 +6,17 @@
 // (repro/kernels/bfp_conv.py:94, :219): bfp_conv2d_prequant_pallas (f32
 // NHWC x, w as int8 mantissas + f32 steps) and
 // bfp_conv2d_xwprequant_pallas with an f32 output (both operands in the
-// wire format).  The inline-weight conv with an f32 output
-// (bfp_conv2d_pallas) runs this core too, as a 1x1 conv over the patch
-// matrix that bfp_pformat.cuh formats, and so do the f32-output matmuls
-// with f32 x, as 1x1 convs over x viewed as [1, B, 1, K]
-// (bfp_matmul_mma_launch, bfp_conv_patch_launch in bfp_conv.cu).
-// Everything else (the x-prequant conv with float weights, the requantize
-// epilogue, L > 8, a block that is not a power of two from 32 to 512, the
-// wire-format matmuls) stays on the tile kernel of bfp_tile.cuh; the
+// wire format).  The inline-weight conv (bfp_conv2d_pallas) runs this
+// core too, as a 1x1 conv over the patch matrix that bfp_pformat.cuh
+// formats, and so do the matmuls with f32 x, as 1x1 convs over x viewed
+// as [1, B, 1, K] (bfp_matmul_mma_launch, bfp_conv_patch_launch in
+// bfp_conv.cu), and the x-prequant conv with float weights
+// (bfp_conv2d_xprequant_pallas) after bfp_pformat.cuh's weight blocks
+// alone.  The requantize epilogue of any of them is the format pass below
+// run over the core's f32 output in out_block chunks (bfp_conv.cu
+// oformat).  L > 8, a block that is not a power of two from 32 to 512,
+// OC % 4 != 0, an out_block that is not a multiple of 4 and the
+// wire-format matmuls stay on the tile kernel of bfp_tile.cuh; the
 // wrappers (kernels/bfp_conv.py conv_core, kernels/bfp_matmul.py
 // matmul_core) pick the core from shape and policy alone.
 //
@@ -112,6 +115,9 @@ struct ConvParams {
 };
 
 // ---- format pass: one warp per (pixel, channel chunk) -------------------
+// Any run of n_chunks contiguous bk-float chunks (bk % 4 == 0, 16-byte
+// aligned): the pixels' channel chunks of an NHWC x, or the out_block
+// chunks of an f32 output's rows for the requantize epilogue.
 __global__ void __launch_bounds__(FMT_NT)
 xformat_kernel(const float* __restrict__ x, int8_t* __restrict__ xm,
                float* __restrict__ xs, long long n_chunks, int bk,

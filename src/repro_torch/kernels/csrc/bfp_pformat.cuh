@@ -38,7 +38,9 @@
 // kernel's, term for term, so the output is bit-identical.
 // bfp_conv_patch_launch (bfp_conv.cu) issues this pass and the core from
 // one host call: an inline conv costs the host one call, as on the tile
-// kernel, and the card two launches.
+// kernel, and the card two launches.  With no patch rows the launch
+// formats the weight alone: the x-prequant conv with float weights takes
+// its w blocks from there (bfp_conv_mma_launch), once per call.
 //
 // What bounds it on this card: bytes, and per-warp instructions.  It
 // reads x (each input pixel once from device memory while its kh rows of

@@ -19,11 +19,13 @@ matrix to int8 mantissas + int32 exponents), padded exactly as
 ``x2d``/``x`` may be the activation wire format ``{"m", "s"}`` (int8
 mantissas + f32 steps per (row or pixel, K-chunk), a previous layer's
 epilogue output): the x-prequant kernels consume it as it is.
-``out_policy=`` asks for that format on the output: the kernel's
-epilogue emits it straight from the f32 accumulator when the blocks fit
-(``out_policy.l_i <= 8``, ``block_k`` divides N and the kernel's column
-tile); otherwise the f32 output is requantized with ``prequant_act`` in
-a second step, as ``repro``'s ``_finish_gemm``/``_finish_conv`` do.
+``out_policy=`` asks for that format on the output: the kernel call's
+requantize epilogue emits it when the blocks fit (``out_policy.l_i <=
+8``, ``block_k`` divides N and the tile kernel's column tile), on the
+tile kernel straight from the f32 accumulator, on the mma core by the
+output format pass over the f32 output (the same bits); otherwise the
+f32 output is requantized with ``prequant_act`` in a second step, as
+``repro``'s ``_finish_gemm``/``_finish_conv`` do.
 """
 from __future__ import annotations
 

@@ -77,18 +77,23 @@ class CnnServeEngine:
     Args follow ``repro.serve.cnn.CnnServeEngine``: ``params`` (ignored,
     and must be None, when ``policy`` is a bound Plan), ``apply_fn``,
     ``policy``, ``slots``, ``buckets``, ``prequant``, ``strict_backend``,
-    ``max_queue``, ``fallback_policy``, ``degrade``, ``float_retry``,
-    ``batching``, ``max_wait``, ``clock``.  ``device`` is where the
-    forwards run (default "cuda"); a pre-bound Plan must live there.
-    ``mesh`` is reserved for sharded serving and raises until the dist
-    slice lands.  There is no ``jit`` switch: forwards run eagerly.
+    ``jit``, ``max_queue``, ``fallback_policy``, ``degrade``,
+    ``float_retry``, ``batching``, ``max_wait``, ``clock``.  ``device`` is
+    where the forwards run (default "cuda"); a pre-bound Plan must live
+    there.  ``mesh`` is reserved for sharded serving and raises until the
+    dist slice lands.  ``jit`` is accepted and kept as ``self.jit``; it
+    changes nothing yet, since PyTorch runs eagerly and every forward goes
+    through the plan's shared ``Plan.jit_forward``.  ``repro`` serves
+    ``jit=False`` eagerly so that taps see every site: a path of its own
+    is added here when the port has taps.
     """
 
     def __init__(self, params: Any, apply_fn: Callable[..., Any],
                  policy: PolicyLike = None, *, slots: int = 8,
                  buckets: Optional[Sequence[int]] = None,
                  prequant: bool = True, strict_backend: bool = False,
-                 mesh=None, max_queue: Optional[int] = None,
+                 mesh=None, jit: bool = True,
+                 max_queue: Optional[int] = None,
                  fallback_policy: PolicyLike = None,
                  degrade: Optional[DegradeConfig] = None,
                  float_retry: bool = True,
@@ -114,6 +119,7 @@ class CnnServeEngine:
                         else default_buckets(slots))
         if self.buckets[-1] < 1:
             raise ValueError(f"bad buckets {self.buckets}")
+        self.jit = jit
         self._fwd = self.plan.jit_forward(apply_fn)
         self._shape: Optional[Tuple[int, ...]] = None
         self._next_rid = 0

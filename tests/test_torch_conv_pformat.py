@@ -182,14 +182,17 @@ def test_served_inline_convs_take_the_mma_core(layer, c, oc):
 
 
 def test_inline_route_rule_keeps_the_rest_on_the_tile_kernel():
-    assert KC.conv_core(False, False, 128, 64, 64, 8, 8, 8) == "tile"  # epi
+    # an epilogue whose blocks the output format pass cannot load (4 | ob)
+    assert KC.conv_core(False, False, 128, 64, 64, 8, 8, 8, 2) == "tile"
     assert KC.conv_core(False, False, 128, 64, 64, 12, None, 8) == "tile"
     assert KC.conv_core(False, False, 128, 64, 64, 8, None, 12) == "tile"
     assert KC.conv_core(False, False, 96, 64, 64, 8) == "tile"   # not 2^n
     assert KC.conv_core(False, False, 16, 64, 64, 8) == "tile"   # < 32
     assert KC.conv_core(False, False, 1024, 64, 64, 8) == "tile"  # > 512
     assert KC.conv_core(False, False, 128, 64, 30, 8) == "tile"  # OC % 4
-    assert KC.conv_core(True, False, 128, 128, 64, 8) == "tile"  # x-pq
+    # x-pq: the weight format pass needs L_W <= 8, the wire x bk | C
+    assert KC.conv_core(True, False, 128, 128, 64, 8, None, 12) == "tile"
+    assert KC.conv_core(True, False, 128, 64, 64, 8) == "tile"
     # whole-K (block_k=None) takes the core only where K is such a block
     assert KC.conv_core(False, False, 64, 64, 64, 8) == "mma"    # 1x1, K 64
     assert KC.conv_core(False, False, 576, 64, 64, 8) == "tile"  # 3x3x64

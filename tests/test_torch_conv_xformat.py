@@ -170,9 +170,12 @@ def test_core_choice_is_a_pure_function_of_shape_and_policy():
     # the inline conv, after its patch format pass (no bk | C needed)
     assert KC.conv_core(False, False, 128, 512, 512, 8) == "mma"
     assert KC.conv_core(False, False, 128, 64, 512, 8) == "mma"
+    # the x-prequant conv, after its weight format pass, and the epilogue
+    # after the core (an out_block that is a multiple of 4)
+    assert KC.conv_core(True, False, 128, 512, 512, 8) == "mma"    # x-pq
+    assert KC.conv_core(False, True, 128, 512, 512, 8, 8, 8, 32) == "mma"
     # what stays on the tile kernel
-    assert KC.conv_core(True, False, 128, 512, 512, 8) == "tile"   # x-pq
-    assert KC.conv_core(False, True, 128, 512, 512, 8, 8) == "tile"  # epi
+    assert KC.conv_core(False, True, 128, 512, 512, 8, 8, 8, 2) == "tile"
     assert KC.conv_core(False, True, 128, 512, 512, 12) == "tile"  # WIDE
     assert KC.conv_core(True, True, 128, 512, 512, 12) == "mma"   # wire x
     assert KC.conv_core(False, True, 48, 96, 512, 8) == "tile"    # bk%32

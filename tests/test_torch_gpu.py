@@ -315,6 +315,141 @@ def test_cuda_matmuls_on_the_mma_core_match_plain_versions(cuda):
     torch.cuda.synchronize()
 
 
+# (B, H, W, C, kernel, stride, padding, OC, bk, L, out_bits, out_block):
+# the wire-x conv and the epilogue on the mma core at ragged M, OC not a
+# multiple of 128, blocks 32/128/512, out_block 4..128, and at VGG16's
+# conv5 shape at batch 8
+EPI_CONV_CASES = [(2, 9, 7, 128, 3, 1, "SAME", 40, 32, 8, 8, 4),
+                  (3, 7, 5, 256, 3, 2, "VALID", 200, 128, 4, 6, 8),
+                  (2, 5, 6, 512, 1, 1, "SAME", 96, 512, 8, 3, 32),
+                  (8, 14, 14, 512, 3, 1, "SAME", 512, 128, 8, 8, 128)]
+# (B, K, N, bk, L, out_bits, out_block); prequant weights where bk | K
+EPI_MM_CASES = [(17, 1536, 36, 512, 8, 8, 4), (5, 300, 1000, 128, 4, 6, 8),
+                (8, 4096, 4096, 128, 8, 8, 128)]
+
+
+def _counted(call):
+    K.reset_launch_counts()
+    out = call()
+    return out, {c: v for c, v in K.launch_counts().items() if v}
+
+
+@pytest.mark.gpu
+def test_cuda_wire_x_conv_and_epilogue_on_the_mma_core(cuda):
+    """The x-prequant conv (weight format pass + core) and the requantize
+    epilogue of every conv mode and of the matmuls with f32 x (the
+    output format pass after the core) against their plain versions on
+    the card, bit-equal: zero, NaN, inf and subnormal pixels, wire steps
+    that are inf, NaN and subnormal, an inf weight.  Each call launches
+    the passes and the core its route predicts; L_W = 9, out_block = 2
+    and OC % 4 != 0 keep the tile kernel."""
+    for case in EPI_CONV_CASES:
+        b, h, wd, c, kk, s, pad, oc, bk, L, ob_bits, ob = case
+        x = t(normal((b, h, wd, c), seed=c + oc)).to(cuda)
+        x[0, 0, 0, :bk] = 0.0
+        x[0, 1, 1, 3] = float("nan")
+        x[-1, 2, 2, bk - 1] = float("inf")
+        x[0, h - 1, wd - 1, :bk] = 1e-40
+        w = t(normal((kk, kk, c, oc), seed=oc, scale=0.05)).to(cuda)
+        w[0, 0, 1, 2] = float("inf")
+        xm, xs = KC.bfp_conv2d_xformat_plain(x, L, bk)
+        xs[0, 2, 3, 0] = float("inf")
+        xs[-1, 1, 1, -1] = float("nan")
+        xs[1 % b, 3, 4, 0] = 1e-40
+        d = prequant_conv_leaf(w, TPU_TILED.with_(block_k=bk))
+        wm, ws = KC.bfp_conv2d_wformat(w, l_w=L, bk=bk)
+        pm, ps = KC.bfp_conv2d_wformat_plain(w, L, bk)
+        assert torch.equal(wm, pm) and torch.equal(_bits(ws), _bits(ps))
+        geo = dict(stride=s, padding=pad)
+        epi = dict(out_bits=ob_bits, out_block=ob)
+        assert KC.conv_core(True, False, bk, c, oc, 8, ob_bits, L, ob) == \
+            "mma", case
+        for label, call, plain, want_counts in (
+                ("xprequant", lambda: KC.bfp_conv2d_xprequant(
+                    xm, xs, w, l_i=8, l_w=L, bk=bk, **geo),
+                 lambda: KC.bfp_conv2d_xprequant_plain(
+                    xm, xs, w, 8, L, bk, s, pad),
+                 {"bfp_conv2d_xprequant": 1, "bfp_conv2d_wformat": 1}),
+                ("xprequant+epi", lambda: KC.bfp_conv2d_xprequant(
+                    xm, xs, w, l_i=8, l_w=L, bk=bk, **geo, **epi),
+                 lambda: KC.bfp_conv2d_xprequant_plain(
+                    xm, xs, w, 8, L, bk, s, pad, ob_bits, ob),
+                 {"bfp_conv2d_xprequant": 1, "bfp_conv2d_wformat": 1,
+                  "bfp_conv2d_oformat": 1, "bfp_conv2d_epilogue": 1}),
+                ("xwprequant+epi", lambda: KC.bfp_conv2d_xwprequant(
+                    xm, xs, d["m"], d["s"], l_i=8, l_w=8, bk=bk, **geo,
+                    **epi),
+                 lambda: KC.bfp_conv2d_xwprequant_plain(
+                    xm, xs, d["m"], d["s"], 8, 8, bk, s, pad, ob_bits, ob),
+                 {"bfp_conv2d_xwprequant": 1, "bfp_conv2d_oformat": 1,
+                  "bfp_conv2d_epilogue": 1}),
+                ("prequant+epi", lambda: KC.bfp_conv2d_prequant(
+                    x, d["m"], d["s"], l_i=L, l_w=8, bk=bk, **geo, **epi),
+                 lambda: KC.bfp_conv2d_prequant_plain(
+                    x, d["m"], d["s"], L, 8, bk, s, pad, ob_bits, ob),
+                 {"bfp_conv2d_prequant": 1, "bfp_conv2d_xformat": 1,
+                  "bfp_conv2d_oformat": 1, "bfp_conv2d_epilogue": 1}),
+                ("inline+epi", lambda: KC.bfp_conv2d(
+                    x, w, l_i=L, l_w=L, bk=bk, **geo, **epi),
+                 lambda: KC.bfp_conv2d_plain(x, w, L, L, bk, s, pad,
+                                             ob_bits, ob),
+                 {"bfp_conv2d": 1, "bfp_conv2d_pformat": 1,
+                  "bfp_conv2d_oformat": 1, "bfp_conv2d_epilogue": 1}),
+                # the tile kernel's cases: L_W = 9, out_block = 2
+                ("xprequant L9", lambda: KC.bfp_conv2d_xprequant(
+                    xm, xs, w, l_i=8, l_w=9, bk=bk, **geo, **epi),
+                 lambda: KC.bfp_conv2d_xprequant_plain(
+                    xm, xs, w, 8, 9, bk, s, pad, ob_bits, ob),
+                 {"bfp_conv2d_xprequant": 1, "bfp_conv2d_epilogue": 1}),
+                ("xwprequant ob2", lambda: KC.bfp_conv2d_xwprequant(
+                    xm, xs, d["m"], d["s"], l_i=8, l_w=8, bk=bk, **geo,
+                    out_bits=ob_bits, out_block=2),
+                 lambda: KC.bfp_conv2d_xwprequant_plain(
+                    xm, xs, d["m"], d["s"], 8, 8, bk, s, pad, ob_bits, 2),
+                 {"bfp_conv2d_xwprequant": 1, "bfp_conv2d_epilogue": 1})):
+            got, counts = _counted(call)
+            assert counts == want_counts, (label, case, counts)
+            _both_equal(got, plain(), (label, case))
+        # OC % 4 != 0: the tile kernel
+        w30 = w[..., :30].contiguous()
+        got, counts = _counted(lambda: KC.bfp_conv2d_xprequant(
+            xm, xs, w30, l_i=8, l_w=L, bk=bk, **geo, out_bits=ob_bits,
+            out_block=2))
+        assert counts == {"bfp_conv2d_xprequant": 1,
+                          "bfp_conv2d_epilogue": 1}, (case, counts)
+        _both_equal(got, KC.bfp_conv2d_xprequant_plain(
+            xm, xs, w30, 8, L, bk, s, pad, ob_bits, 2), ("OC 30", case))
+    for case in EPI_MM_CASES:
+        b, k, n, bk, L, ob_bits, ob = case
+        x = t(normal((b, k), seed=k + n)).to(cuda)
+        x[0, :bk] = 0.0
+        x[1, 3] = float("nan")
+        x[2, k - 1] = float("inf")
+        x[-1] = 1e-40 * torch.sign(x[-1])
+        w = t(normal((k, n), seed=n, scale=0.05)).to(cuda)
+        w[k // 3, 1] = float("inf")
+        epi = dict(out_bits=ob_bits, out_block=ob)
+        if k % bk == 0:
+            d = prequant_leaf(w, TPU_TILED.with_(block_k=bk))
+            got, counts = _counted(lambda: KM.bfp_matmul_prequant(
+                x, d["m"], d["s"], l_i=L, l_w=8, bk=bk, **epi))
+            assert counts == {"bfp_matmul_prequant": 1,
+                              "bfp_matmul_xformat": 1,
+                              "bfp_matmul_oformat": 1,
+                              "bfp_matmul_epilogue": 1}, (case, counts)
+            _both_equal(got, KM.bfp_matmul_prequant_plain(
+                x, d["m"], d["s"], L, 8, bk, ob_bits, ob),
+                ("prequant+epi", case))
+        got, counts = _counted(lambda: KM.bfp_matmul(
+            x, w, l_i=L, l_w=L, bk=bk, **epi))
+        assert counts == {"bfp_matmul": 1, "bfp_matmul_pformat": 1,
+                          "bfp_matmul_oformat": 1,
+                          "bfp_matmul_epilogue": 1}, (case, counts)
+        _both_equal(got, KM.bfp_matmul_plain(x, w, L, L, bk, ob_bits, ob),
+                    ("inline+epi", case))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_cuda_chain_on_the_wire_equals_the_float_chain(cuda):
     """Through the engine on the card: each producer's fused epilogue

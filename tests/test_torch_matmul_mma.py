@@ -206,8 +206,9 @@ def test_served_gemms_take_the_mma_core(layer, prequant, k, n):
 
 def test_matmul_route_rule_keeps_the_rest_on_the_tile_kernel():
     assert KM.matmul_core(False, 128, 64, 10, 8, 8) == "tile"  # reduced fc8
-    assert KM.matmul_core(True, 128, 2048, 1000, 8, 8, 8) == "tile"  # epi
-    assert KM.matmul_core(False, 128, 64, 64, 8, 8, 8) == "tile"
+    # an epilogue whose blocks the output format pass cannot load (4 | ob)
+    assert KM.matmul_core(True, 128, 2048, 1000, 8, 8, 8, 2) == "tile"
+    assert KM.matmul_core(False, 128, 64, 64, 8, 8, 8, 2) == "tile"
     assert KM.matmul_core(True, 128, 2048, 1000, 12, 8) == "tile"  # L 12
     assert KM.matmul_core(False, 128, 64, 64, 8, 12) == "tile"
     assert KM.matmul_core(False, 8, 64, 64, 8, 8) == "tile"      # bk 8

@@ -9,8 +9,13 @@ random weights under ``PALLAS_TILED`` (strict, prequantized), records
 the conv and GEMM calls of one batch-8 forward and times each at its own
 input with CUDA events (5 calls after one warm-up, as ``chip_smoke.py``
 times its layers).  A layer's core is "mma" when the call launched a
-format pass of the mma core, else "tile", read from the checkout's
-launch counters, so it is right for any commit.  OUT.json holds
+format pass of the mma core (any counter whose name ends in "format":
+the conv's and the GEMM's activation, patch, weight and output passes),
+else "tile", read from the checkout's launch counters, so it is right
+for any commit.  The rule holds here because every recorded call takes
+f32 x, so a call on the core always runs a pass; a wire-x call with
+prequant weights and an f32 output runs the core alone and would read
+"tile" (no model served here makes one).  OUT.json holds
 ``{"card": ..., "layers": {"<MODEL>_full": {path: {"kernel", "core",
 "shape", "ms"}}}}``, the layout ``tools/compare_layers.py`` reads.  Run
 two checkouts in turns in one call (A, B, B, A) to compare them; needs a
@@ -82,8 +87,7 @@ def main() -> int:
             wt = w["m"] if is_prequant(w) else w
             n = wt.shape[-1]
             k = wt.numel() // n
-            fmt = (counts.get("bfp_conv2d_xformat", 0)
-                   + counts.get("bfp_conv2d_pformat", 0))
+            fmt = sum(v for c, v in counts.items() if c.endswith("format"))
             call()
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
