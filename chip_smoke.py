@@ -33,7 +33,11 @@ raises (and so exits non-zero) when it fails:
    block 32, out_block 4 and hazard pixels, inf / NaN / subnormal wire
    steps and an inf weight, at blocks 512 and 128 (stride 2) with
    OC = 200 and 224 and out_block 8 and 32; and one case per tile-kernel
-   fallback (L_W = 9, out_block = 2, OC = 30);
+   fallback (L_W = 9, out_block = 2, OC = 30); the x-prequant matmul on
+   the mma core after its weight format pass (each pass also alone) at
+   chain B's fc7 and fc8 (batch 8), at M = 1 and 17, blocks 32, 128 and
+   512, out_block 4 and 128, with hazard rows and wire steps, and one
+   case per tile-kernel fallback (L_W = 9, N = 30, out_block = 2);
 4. the main path: full-width VGG16 (224x224x3, 1000 classes, seeded
    random weights) bound with ``PALLAS_TILED`` (strict, prequantized) and
    served through ``CnnServeEngine`` — 16 requests, no failures, no float
@@ -62,7 +66,8 @@ raises (and so exits non-zero) when it fails:
    prequantized (the xw-prequant kernels), plan B with float weights (the
    x-prequant kernels).  Each plan's launches are counted in its own
    zeroed run and checked (``CHAIN_LAUNCHES``: every chain conv and fc6
-   on the mma core, each with its format passes; fc7-8 on the tile
+   on the mma core, each with its format passes; chain B's fc7-8 on the
+   mma core after a weight format pass each, chain A's on the tile
    kernel), with the epilogue count; every output
    (wire dicts included) is ``torch.equal`` to the same chain through a
    backend of plain versions, each ``out_policy`` output to
@@ -73,14 +78,17 @@ raises (and so exits non-zero) when it fails:
    output format passes inside it alone (checked bit-equal); then the
    sums over each chain's epilogue layers and wire-x convs;
 7. the block-formatting kernel (``bfp_quantize``) against its plain
-   version at ragged M and K, blocks 32/128/512, L 4/8, with zero, inf
-   and NaN blocks; then the path ``resnet50_format``: full-width
+   version at ragged M and K, blocks 32/48/128/512, L 4/6/8, with zero,
+   inf and NaN blocks, each case on the path (vector or scalar) its shape
+   and alignment name, and at an x that starts 4 bytes off 16-byte
+   alignment (the scalar path); then the path ``resnet50_format``: full-width
    ResNet-50 (BN statistics from the seed) bound like phase 4, and every
    weight its plan prequantized (44 convs and fc) formatted offline
    through ``ops.bfp_quantize`` in the GEMM view ``[N, K]`` — launches
    counted in their own zeroed run, each output ``torch.equal`` to the
    plain version and to the plan's sidecar (``m.T == m``,
-   ``pow2(e - 6).T == s``), and timed;
+   ``pow2(e - 6).T == s``), and timed: each weight alone, the loop of
+   the 45 calls (CUDA events) and its device time (``torch.profiler``);
 8. ResNet-50 (the slice's main path), ResNet-18 and GoogLeNet at full
    width served like phase 4 (16 requests, launches as
    ``MODEL_LAUNCHES`` predicts, logits — GoogLeNet's head 0 — bit-equal
@@ -137,8 +145,9 @@ _CONV_CU = "src/repro_torch/kernels/csrc/bfp_conv.cu"
 #: core's route is in bfp_conv.cu, the tile kernel's in bfp_matmul.cu
 _MM_BOTH = {"mma": _CONV_CU, "tile": _MM_CU}
 SOURCES = {"bfp_matmul": _MM_BOTH, "bfp_matmul_prequant": _MM_BOTH,
-           "bfp_matmul_xprequant": _MM_CU, "bfp_matmul_xwprequant": _MM_CU,
+           "bfp_matmul_xprequant": _MM_BOTH, "bfp_matmul_xwprequant": _MM_CU,
            "bfp_matmul_xformat": _CONV_CU, "bfp_matmul_pformat": _CONV_CU,
+           "bfp_matmul_wformat": _CONV_CU,
            "bfp_conv2d": _CONV_CU, "bfp_conv2d_prequant": _CONV_CU,
            "bfp_conv2d_xprequant": _CONV_CU, "bfp_conv2d_xwprequant": _CONV_CU,
            "bfp_conv2d_xformat": _CONV_CU, "bfp_conv2d_pformat": _CONV_CU,
@@ -154,6 +163,9 @@ REPLACES = {"bfp_matmul": "src/repro/kernels/bfp_matmul.py:362",
             # (and weight block) before the mma core
             "bfp_matmul_xformat": "src/repro/kernels/bfp_matmul.py:216",
             "bfp_matmul_pformat": "src/repro/kernels/bfp_matmul.py:216",
+            # load_w, which the x-prequant matmul now formats once per
+            # call (the patch pass's weight blocks) before the mma core
+            "bfp_matmul_wformat": "src/repro/kernels/bfp_matmul.py:216",
             "bfp_conv2d": "src/repro/kernels/bfp_conv.py:278",
             "bfp_conv2d_prequant": "src/repro/kernels/bfp_conv.py:304",
             "bfp_conv2d_xprequant": "src/repro/kernels/bfp_conv.py:332",
@@ -179,7 +191,7 @@ WIRE_COUNTERS = ("bfp_matmul_xprequant", "bfp_matmul_xwprequant",
                  "bfp_conv2d_xprequant", "bfp_conv2d_xwprequant",
                  "bfp_matmul_epilogue", "bfp_conv2d_epilogue",
                  "bfp_conv2d_wformat", "bfp_conv2d_oformat",
-                 "bfp_matmul_oformat")
+                 "bfp_matmul_wformat", "bfp_matmul_oformat")
 #: the chains of phase 6: each stage starts from the real activation at
 #: its entry; conv1_x cannot chain (C = 3 and 64 are not block multiples)
 CHAIN_STAGES = (("conv2_1", "conv2_2"), ("conv3_1", "conv3_2", "conv3_3"),
@@ -221,20 +233,25 @@ MODEL_LAUNCHES = {
 FORMAT_PASSES = ("bfp_conv2d_xformat", "bfp_conv2d_pformat",
                  "bfp_matmul_xformat", "bfp_matmul_pformat",
                  "bfp_conv2d_wformat", "bfp_conv2d_oformat",
-                 "bfp_matmul_oformat")
+                 "bfp_matmul_wformat", "bfp_matmul_oformat")
 #: offline formatting of ResNet-50: one launch per prequantized weight
 FORMAT_LAUNCHES = {"bfp_quantize": 45}
-#: (M, K, bk, bits) of the phase-7 checks: ragged M and K, blocks 32, 128
-#: and 512, L 4 and 8 (rows 0-4 of each carry the hazard blocks)
+#: (M, K, bk, bits) of the phase-7 checks: ragged M and K, blocks 32, 48,
+#: 128 and 512, L 4, 6 and 8 (rows 0-4 of each carry the hazard blocks).
+#: The kernel's vector path takes K % 16 == 0 with bk % 16 == 0 and
+#: bk <= 512 (at bk 32, 48, 128 and 512 here), the scalar path the rest
 Q_SHAPES = ((1000, 2047, 128, 8), (37, 300, 32, 4), (512, 4608, 512, 8),
-            (2049, 1153, 128, 8), (64, 147, 32, 8), (300, 96, 512, 4))
+            (2049, 1153, 128, 8), (64, 147, 32, 8), (300, 96, 512, 4),
+            (1000, 4608, 32, 8), (64, 64, 128, 8), (40, 480, 48, 6),
+            (2048, 1152, 512, 4))
 #: every chain conv and fc6 run on the mma core: an f32-x layer after its
-#: activation (prequant) or patch (inline) format pass, a wire-x conv with
-#: float weights after its weight format pass, every layer with an
-#: out_policy (7 convs and fc6; fc7 on the tile kernel) with one output
-#: format pass after the core; fc7-8 (wire-format matmuls) on the tile
-#: kernel.  Per chain run at batch 8 (plan A: weights prequantized; plan
-#: B: float weights); 9 layers run the requantize epilogue each
+#: activation (prequant) or patch (inline) format pass, a wire-x conv or
+#: matmul with float weights after its weight format pass, every layer
+#: with an out_policy on the core (7 convs and fc6, and chain B's fc7)
+#: with one output format pass after the core; chain A's fc7-8 (both
+#: operands on the wire) on the tile kernel.  Per chain run at batch 8
+#: (plan A: weights prequantized; plan B: float weights); 9 layers run
+#: the requantize epilogue each
 CHAIN_LAUNCHES = {
     "chain_A": {"bfp_conv2d": 1, "bfp_conv2d_pformat": 1,
                 "bfp_conv2d_prequant": 3, "bfp_conv2d_xformat": 3,
@@ -242,14 +259,15 @@ CHAIN_LAUNCHES = {
                 "bfp_conv2d_epilogue": 7, "bfp_matmul_prequant": 1,
                 "bfp_matmul_xformat": 1, "bfp_matmul_oformat": 1,
                 "bfp_matmul_xwprequant": 2, "bfp_matmul_epilogue": 2,
-                "bfp_matmul_pformat": 0, "bfp_conv2d_wformat": 0},
+                "bfp_matmul_pformat": 0, "bfp_conv2d_wformat": 0,
+                "bfp_matmul_wformat": 0},
     "chain_B": {"bfp_conv2d": 4, "bfp_conv2d_pformat": 4,
                 "bfp_conv2d_xprequant": 7, "bfp_conv2d_wformat": 7,
                 "bfp_conv2d_oformat": 7, "bfp_conv2d_epilogue": 7,
                 "bfp_matmul": 1, "bfp_matmul_pformat": 1,
-                "bfp_matmul_oformat": 1, "bfp_matmul_xprequant": 2,
-                "bfp_matmul_epilogue": 2, "bfp_matmul_xformat": 0,
-                "bfp_conv2d_xformat": 0}}
+                "bfp_matmul_xprequant": 2, "bfp_matmul_wformat": 2,
+                "bfp_matmul_oformat": 2, "bfp_matmul_epilogue": 2,
+                "bfp_matmul_xformat": 0, "bfp_conv2d_xformat": 0}}
 
 
 def fail(msg: str) -> None:
@@ -698,6 +716,74 @@ def main() -> int:
     epi_case("tile_oc30", "off_path", "xprequant", xr,
              wr[..., :30].contiguous(), cbk=32, obits=None, hazards=True)
 
+    # the x-prequant matmul (wire x, float w) on the mma core after its
+    # weight format pass, as the 1x1 conv over [1, M, 1, K]; each pass
+    # also alone
+    def wx_mm_case(label, path, x, w, mbk=bk, lw=8, obits=8, ob=bk,
+                   hazards=False):
+        """``x`` f32 formatted to the wire first (L 8); with ``hazards``
+        its first block is zero and its wire steps hold an inf, a NaN
+        and a subnormal, and ``w`` an inf."""
+        (m, k), n = x.shape, w.shape[1]
+        core = KM.matmul_core(False, mbk, k, n, 8, lw, obits, ob,
+                              wire_x=True)
+        check(core == ("tile" if label.startswith("tile_") else "mma"),
+              f"{label}: wire-x matmul routed to the {core} core")
+        if hazards:
+            x[0, :mbk] = 0.0
+            w[k // 3, 1] = float("inf")
+        xm, xs = KC.bfp_conv2d_xformat_plain(x.reshape(1, m, 1, k), 8, mbk)
+        xm, xs = xm.reshape(m, k), xs.reshape(m, k // mbk)
+        if hazards:
+            xs[0, -1] = float("inf")
+            xs[-1, 0] = float("nan")
+            xs[m // 2, 1] = 1e-40
+        cases.append((label, path, "bfp_matmul_xprequant",
+                      lambda: KM.bfp_matmul_xprequant(
+                          xm, xs, w, l_i=8, l_w=lw, bk=mbk, out_bits=obits,
+                          out_block=ob),
+                      lambda: KM.bfp_matmul_xprequant_plain(
+                          xm, xs, w, 8, lw, mbk, obits, ob),
+                      {"m": xm, "s": xs}, (w,), m, n, k, core))
+        if core != "mma":
+            return
+        w4 = w.reshape(1, 1, k, n)                  # its weight pass alone
+        cases.append((label, path, "bfp_matmul_wformat",
+                      lambda: KC.bfp_conv2d_wformat(w4, l_w=lw, bk=mbk),
+                      lambda: KC.bfp_conv2d_wformat_plain(w4, lw, mbk), w,
+                      (), k, n, 0, core))
+        if obits is not None:                       # its output pass alone
+            y4 = KM.bfp_matmul_xprequant_plain(xm, xs, w, 8, lw,
+                                               mbk).reshape(1, m, 1, n)
+            cases.append((label, path, "bfp_matmul_oformat",
+                          lambda: KC.bfp_conv2d_xformat(y4, l_i=obits,
+                                                        bk=ob),
+                          lambda: KC.bfp_conv2d_xformat_plain(y4, obits, ob),
+                          y4, (), m * n // ob, ob, 0, core))
+
+    # chain B's fc7 (out_policy for fc8) and fc8 at batch 8
+    wx_mm_case("fc7", "chain_B", rnd(b, 4096, relu=True),
+               rnd(4096, 4096, scale=0.02))
+    wx_mm_case("fc8", "chain_B", rnd(b, 4096, relu=True),
+               rnd(4096, 1000, scale=0.02), obits=None)
+    # M = 1 and 17, blocks 512, 32 and 128, out_block 8, 4 and 128, L_W 4
+    # and 6, hazards
+    wx_mm_case("wx_M1_bk512", "off_path", rnd(1, 4096),
+               rnd(4096, 1000, scale=0.02), mbk=512, lw=4, obits=6, ob=8,
+               hazards=True)
+    wx_mm_case("wx_M17_bk32", "off_path", rnd(17, 1536),
+               rnd(1536, 36, scale=0.03), mbk=32, obits=3, ob=4,
+               hazards=True)
+    wx_mm_case("wx_M17_ob128", "off_path", rnd(17, 2048),
+               rnd(2048, 256, scale=0.03), lw=6, ob=128, hazards=True)
+    # the tile kernel keeps L_W = 9, N % 4 != 0 and out_block = 2
+    wx_mm_case("tile_wx_L9", "off_path", rnd(17, 1536),
+               rnd(1536, 36, scale=0.03), mbk=32, lw=9, ob=4, hazards=True)
+    wx_mm_case("tile_wx_N30", "off_path", rnd(17, 1536),
+               rnd(1536, 30, scale=0.03), mbk=32, obits=None, hazards=True)
+    wx_mm_case("tile_wx_ob2", "off_path", rnd(17, 1536),
+               rnd(1536, 36, scale=0.03), mbk=32, ob=2, hazards=True)
+
     def nan_bits(a):    # NaN-aware bit patterns (hazard inputs make NaN)
         a = a if isinstance(a, tuple) else (a,)
         return [torch.where(v.isnan(), torch.full_like(v, float("nan")),
@@ -1145,13 +1231,14 @@ def main() -> int:
                         core = KC.conv_core(is_prequant(x), is_prequant(w),
                                             kb, c, n, pol.l_i, obits,
                                             pol.l_w, ob)
-                    elif is_prequant(x):   # the wire-format matmuls
-                        core = "tile"
                     else:
                         core = KM.matmul_core(is_prequant(w), kb, k, n,
-                                              pol.l_i, pol.l_w, obits, ob)
-                    check(core == ("tile" if fc and is_prequant(x)
-                                   else "mma"),
+                                              pol.l_i, pol.l_w, obits, ob,
+                                              wire_x=is_prequant(x))
+                    # only the xw-prequant matmuls (chain A's fc7-8) keep
+                    # the tile kernel
+                    check(core == ("tile" if fc and is_prequant(x) and
+                                   is_prequant(w) else "mma"),
                           f"{label} {name}: ran on the {core} core")
                     row = rows[name] = {
                         "kernel": kernel_of(kplan, name, x), "core": core,
@@ -1180,12 +1267,13 @@ def main() -> int:
                     passes = []
                     if core == "mma" and is_prequant(x) and not \
                             is_prequant(w):
+                        w4 = w.reshape(1, 1, k, n) if fc else w
                         passes.append((
-                            "wformat", "bfp_conv2d_wformat", w,
-                            lambda: KC.bfp_conv2d_wformat(w, l_w=pol.l_w,
+                            "wformat", fam + "_wformat", w,
+                            lambda: KC.bfp_conv2d_wformat(w4, l_w=pol.l_w,
                                                           bk=kb),
                             lambda: KC.bfp_conv2d_wformat_plain(
-                                w, pol.l_w, kb)))
+                                w4, pol.l_w, kb)))
                     if core == "mma" and opol is not None:
                         y4 = yf.reshape(1, m, 1, n) if fc else yf
                         passes.append((
@@ -1215,6 +1303,9 @@ def main() -> int:
             epi = [r for r in rows.values() if r["epilogue"]]
             wx = [r for r in rows.values()
                   if r["kernel"] == "bfp_conv2d_xprequant"]
+            wmm = {ln: r for ln, r in rows.items()
+                   if r["kernel"] in ("bfp_matmul_xprequant",
+                                      "bfp_matmul_xwprequant")}
             oft = sum(r["ms"] for r in rows.values()
                       if r["kernel"].endswith("_oformat"))
             print(f"time chain {label}: {len(epi)} layers run the "
@@ -1224,8 +1315,12 @@ def main() -> int:
                   f"and steps out; output format passes inside them "
                   f"{oft:.4f} ms); {len(wx)} wire-x convs with float "
                   f"weights {sum(r['ms'] for r in wx):.4f} ms, bound "
-                  f"{sum(r['bound_ms'] for r in wx):.4f} ms  [{card}]",
-                  flush=True)
+                  f"{sum(r['bound_ms'] for r in wx):.4f} ms; wire-format "
+                  f"matmuls {'+'.join(wmm)} "
+                  f"{sum(r['ms'] for r in wmm.values()):.4f} ms, bound "
+                  f"{sum(r['bound_ms'] for r in wmm.values()):.4f} ms, "
+                  f"core={'/'.join(r['core'] for r in wmm.values())}"
+                  f"  [{card}]", flush=True)
 
     # -- 7. bfp_quantize: the offline block formatting -----------------------
     def q_input(m, k, bk):
@@ -1237,20 +1332,38 @@ def main() -> int:
         x[4] *= 1000.0
         return x.to(dev)
 
-    for m_rows, k, qbk, bits in Q_SHAPES:
-        x = q_input(m_rows, k, qbk)
+    def q_check(x, xref, qbk, bits, want_path, what):
+        """The kernel on ``x`` against the plain version on ``xref`` (the
+        same values), on the path the launch names for it."""
         got, want = KQ.bfp_quantize(x, bits=bits, bk=qbk), \
-            KQ.bfp_quantize_plain(x, bits, qbk)
+            KQ.bfp_quantize_plain(xref, bits, qbk)
         torch.cuda.synchronize()
+        qpath = KQ.kernel_path(x, got[0], qbk)
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(got, want))
-        print(f"check bfp_quantize M,K={m_rows},{k} bk={qbk} L={bits} "
-              f"(zero/NaN/inf blocks) torch.equal={equal} "
+        print(f"check bfp_quantize M,K={x.shape[0]},{x.shape[1]} bk={qbk} "
+              f"L={bits} {what} path={qpath} torch.equal={equal} "
               f"max_abs_diff={err}", flush=True)
+        check(qpath == want_path, f"bfp_quantize took the {qpath} path at "
+                                  f"{what}, expected {want_path}")
         check(equal, f"bfp_quantize differs from its plain version at "
-                     f"{(m_rows, k, qbk, bits)}")
+                     f"{(*x.shape, qbk, bits)} {what}")
         errs["bfp_quantize"] = max(errs.get("bfp_quantize", 0.0), err)
+
+    for m_rows, k, qbk, bits in Q_SHAPES:
+        x = q_input(m_rows, k, qbk)
+        vec = k % 16 == 0 and qbk % 16 == 0 and qbk <= 512
+        q_check(x, x, qbk, bits, "vector" if vec else "scalar",
+                "(zero/NaN/inf blocks)")
+    # x 4 bytes off 16-byte alignment (a contiguous view at an offset):
+    # the scalar path, on a shape the vector path would otherwise take
+    x = q_input(300, 1024, bk)
+    xo = torch.zeros(x.numel() + 1, device=dev)[1:].view(x.shape)
+    xo.copy_(x)
+    check(xo.is_contiguous() and xo.data_ptr() % 16 == 4,
+          "misaligned bfp_quantize input is not 4 bytes off")
+    q_check(xo, x, bk, 8, "scalar", "(x 4 bytes off 16-byte alignment)")
 
     # ResNet-50 at published width, BN statistics from the seed; every
     # weight its plan prequantizes, formatted offline through
@@ -1302,6 +1415,67 @@ def main() -> int:
           f"{sum(r['plain_ms'] for r in rows.values()):.4f} ms, bound "
           f"{sum(r['bound_ms'] for r in rows.values()):.4f} ms (bytes) "
           f"over the {len(rows)} weights  [{card}]", flush=True)
+
+    # the 45 calls as one loop: CUDA events around it (the host's time
+    # per call shows); then each call's device time from the profiler's
+    # kernel events, on the vector path (the weights as bound) and on the
+    # scalar path (copies of them 4 bytes off 16-byte alignment)
+    def fmt_loop():
+        for p in fmt_sites:
+            ops.bfp_quantize(views[p], 8, bk)
+
+    def device_us(xs, reps=5):
+        """Median device time (us) of each call, over ``reps`` loops: the
+        loops must launch one kernel a call and nothing else."""
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for x in xs:
+                    ops.bfp_quantize(x, 8, bk)
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        check(len(ev) == reps * len(xs)
+              and all("bfp_quantize" in e.name for e in ev),
+              f"{fmt_p}: {len(ev)} device events for {reps * len(xs)} "
+              f"calls: {sorted({e.name[:60] for e in ev})}")
+        return [float(np.median([ev[r * len(xs) + i].time_range.elapsed_us()
+                                 for r in range(reps)]))
+                for i in range(len(xs))]
+
+    loop_ms = cuda_ms(fmt_loop, reps=20)
+    off = []
+    for p in fmt_sites:
+        xo = torch.zeros(views[p].numel() + 1, device=dev)[1:].view(
+            views[p].shape)
+        off.append(xo.copy_(views[p]))
+    for x in (views[fmt_sites[0]], off[0]):
+        got = ops.bfp_quantize(x, 8, bk)
+        check(KQ.kernel_path(x, got[0], bk) == ("scalar" if x is off[0]
+                                                 else "vector"),
+              f"{fmt_p}: a weight took the wrong path")
+    vec_us = device_us([views[p] for p in fmt_sites])
+    sca_us = device_us(off)
+    for p, v, sc in zip(fmt_sites, vec_us, sca_us):
+        rows[p].update(device_us_vector=v, device_us_scalar=sc)
+    big = max(fmt_sites, key=lambda p: views[p].numel())
+    detail[fmt_p] = {"loop_ms": loop_ms, "device_ms": sum(vec_us) / 1e3,
+                     "device_ms_scalar": sum(sca_us) / 1e3,
+                     "vector_faster": sum(v < sc for v, sc in zip(vec_us,
+                                                                  sca_us))}
+    fd = detail[fmt_p]
+    print(f"time {fmt_p}: loop of the {len(fmt_sites)} calls "
+          f"{loop_ms:.4f} ms (CUDA events); device time (profiler, one "
+          f"launch a call and nothing else) {fd['device_ms']:.4f} ms on the "
+          f"vector path, {fd['device_ms_scalar']:.4f} ms on the scalar path "
+          f"(x 4 bytes off alignment), the vector path faster for "
+          f"{fd['vector_faster']} of {len(fmt_sites)} weights; calls "
+          f"{min(vec_us):.2f}-{max(vec_us):.2f} us, the largest "
+          f"{tuple(views[big].shape)} {rows[big]['device_us_vector']:.2f} "
+          f"/ {rows[big]['device_us_scalar']:.2f} us; bound "
+          f"{sum(r['bound_ms'] for r in rows.values()):.4f} ms  [{card}]",
+          flush=True)
 
     # -- 8. ResNet-50, ResNet-18, GoogLeNet served at full width ------------
     def time_forward(plan, apply, imgs):

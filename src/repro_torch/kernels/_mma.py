@@ -3,9 +3,11 @@ by the conv and matmul wrappers.
 
 Which calls take the core (:func:`mma_core`, :func:`patch_core`), which
 of its tiles a call runs (:func:`mma_tile`), the patch-matrix geometry
-of the inline route (:class:`_Patch`) and the launch of that route
-(:func:`_launch_patch`), and the handle of ``csrc/bfp_conv.cu``, which
-compiles the core and both format passes.  A matmul is the 1x1,
+of the inline route (:class:`_Patch`), the launches of the inline route
+(:func:`_launch_patch`) and of the wire route (:func:`_launch_mma`: x on
+the wire or formatted to it, w prequant or formatted by the weight
+pass), and the handle of ``csrc/bfp_conv.cu``, which compiles the core
+and both format passes.  A matmul is the 1x1,
 stride-1, unpadded conv over x viewed as ``[1, B, 1, K]``, so
 ``kernels.bfp_conv`` and ``kernels.bfp_matmul`` both route through here
 and neither imports the other for it.
@@ -277,3 +279,70 @@ def _launch_patch(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
                 _count(counters, family, family, out_bits, "_pformat",
                        layer=layer and row0 == 0)
     return out if out_bits is None else (om, os_)
+
+
+def _launch_mma(xm, xs, wm, ws, bk: int, stride: int, padding: str,
+                counters: Dict[str, int], family: str, name: str, *,
+                x=None, w=None, l_i: int = 8, l_w: int = 8,
+                out_bits: Optional[int] = None,
+                out_block: Optional[int] = None, layer: bool = True):
+    """The int8 mma core on wire-format x and w -> f32 NHWC, with the
+    passes of ``bfp_conv_mma_launch`` around it in the same host call:
+    an f32 NHWC ``x`` (for None ``xm``/``xs``) is formatted into scratch
+    first (L = ``l_i``), a float HWIO ``w`` (for None ``wm``/``ws``) into
+    a scratch sidecar [K, OC] + [K // bk, OC] (L = ``l_w``), and with
+    ``out_bits`` the f32 output (then scratch) is formatted into the
+    returned wire pair.  A matmul passes x as ``[1, B, 1, K]`` and w as
+    ``[1, 1, K, N]`` (stride 1, VALID).  The call counts under ``family``
+    (``bfp_conv2d`` or ``bfp_matmul``): the core under ``name``, its
+    passes and, with ``out_bits``, the layer under ``_epilogue`` unless
+    ``layer`` is False (a later row block of one matmul)."""
+    b, h, wd, c = (xm if x is None else x).shape
+    kh, kw, _, oc = (wm if w is None else w).shape
+    oh, ow, (pt, _), (pl, _) = conv_geometry(h, wd, kh, kw, stride, padding)
+    rows, k = b * oh * ow, kh * kw * c
+    if max(rows, b * h * wd * c, k * oc) > _INT_MAX:
+        raise ValueError(f"conv {(b, h, wd, c)} * {(kh, kw, c, oc)} "
+                         f"exceeds the kernel's int32 indexing")
+    passes = ()
+    if x is None:
+        xm = _aligned(xm)
+    else:
+        x = _aligned(x.float().contiguous())
+        xm = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        xs = torch.empty((b, h, wd, c // bk), dtype=torch.float32,
+                         device=x.device)
+        passes = ("_xformat",)
+    if w is None:
+        wm = _aligned(wm)
+    else:
+        w = w.float().contiguous()
+        wm = torch.empty((k, oc), dtype=torch.int8, device=w.device)
+        ws = torch.empty((k // bk, oc), dtype=torch.float32, device=w.device)
+        passes = ("_wformat",)
+    dev = _check_cuda(xm, xs, wm, ws, x, w)
+    out = torch.empty((b, oh, ow, oc), dtype=torch.float32, device=dev)
+    om, os_ = (None, None) if out_bits is None else _outputs(
+        out.shape, out_bits, out_block, dev)
+    if rows and oc:
+        with _on(dev):
+            _raise_on(_lib().bfp_conv_mma_launch(
+                _ptr(x), _ptr(w), xm.data_ptr(), xs.data_ptr(),
+                wm.data_ptr(), ws.data_ptr(), out.data_ptr(), _ptr(om),
+                _ptr(os_), b, h, wd, c, kh, kw, oc, stride, oh, ow, pt, pl,
+                bk, l_i, l_w, out_bits or 0, out_block or 0,
+                mma_tile(rows, oc, bk), _stream(dev)), name)
+        _count(counters, family, name, out_bits, *passes, layer=layer)
+    return out if out_bits is None else (om, os_)
+
+
+def _by_rows(launch, m: int, rows: int, out_bits: Optional[int]):
+    """``launch(r0, r1, layer)`` on each block of ``rows`` rows of an
+    M-row matmul, the outputs joined: where a call's indexing would pass
+    int32 (never when served).  ``layer`` is True for the first block
+    only, so the layer's epilogue counts once."""
+    parts = [launch(r0, min(r0 + rows, m), r0 == 0)
+             for r0 in range(0, m, rows)]
+    if out_bits is None:
+        return torch.cat(parts)
+    return tuple(torch.cat(p) for p in zip(*parts))

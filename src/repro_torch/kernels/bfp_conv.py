@@ -69,7 +69,7 @@ import torch
 
 from repro_torch.core.conv_utils import conv_geometry, im2col
 from repro_torch.kernels._mma import (_INT_MAX, MMA_MAX_BK, MMA_TILES,
-                                      _aligned, _check_cuda, _count,
+                                      _aligned, _check_cuda, _launch_mma,
                                       _launch_patch, _lib, _on, _outputs,
                                       _patch, _ptr, _raise_on, _stream,
                                       mma_core, mma_tile, patch_core)
@@ -256,54 +256,6 @@ def _launch_xformat(x: torch.Tensor, l_i: int,
     return xm, xs
 
 
-def _launch_mma(xm, xs, wm, ws, bk, stride, padding, name, *, x=None,
-                w=None, l_i=8, l_w=8, out_bits=None, out_block=None) -> Out:
-    """The int8 mma core on wire-format x and w -> f32 NHWC, with the
-    passes of ``bfp_conv_mma_launch`` around it in the same host call:
-    an f32 NHWC ``x`` (for None ``xm``/``xs``) is formatted into scratch
-    first (L = ``l_i``), a float HWIO ``w`` (for None ``wm``/``ws``) into
-    a scratch sidecar [K, OC] + [K // bk, OC] (L = ``l_w``), and with
-    ``out_bits`` the f32 output (then scratch) is formatted into the
-    returned wire pair."""
-    b, h, wd, c = (xm if x is None else x).shape
-    kh, kw, _, oc = (wm if w is None else w).shape
-    oh, ow, (pt, _), (pl, _) = conv_geometry(h, wd, kh, kw, stride, padding)
-    rows, k = b * oh * ow, kh * kw * c
-    if max(rows, b * h * wd * c, k * oc) > _INT_MAX:
-        raise ValueError(f"conv {(b, h, wd, c)} * {(kh, kw, c, oc)} "
-                         f"exceeds the kernel's int32 indexing")
-    passes = ()
-    if x is None:
-        xm = _aligned(xm)
-    else:
-        x = _aligned(x.float().contiguous())
-        xm = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-        xs = torch.empty((b, h, wd, c // bk), dtype=torch.float32,
-                         device=x.device)
-        passes = ("_xformat",)
-    if w is None:
-        wm = _aligned(wm)
-    else:
-        w = w.float().contiguous()
-        wm = torch.empty((k, oc), dtype=torch.int8, device=w.device)
-        ws = torch.empty((k // bk, oc), dtype=torch.float32, device=w.device)
-        passes = ("_wformat",)
-    dev = _check_cuda(xm, xs, wm, ws, x, w)
-    out = torch.empty((b, oh, ow, oc), dtype=torch.float32, device=dev)
-    om, os_ = (None, None) if out_bits is None else _outputs(
-        out.shape, out_bits, out_block, dev)
-    if rows and oc:
-        with _on(dev):
-            _raise_on(_lib().bfp_conv_mma_launch(
-                _ptr(x), _ptr(w), xm.data_ptr(), xs.data_ptr(),
-                wm.data_ptr(), ws.data_ptr(), out.data_ptr(), _ptr(om),
-                _ptr(os_), b, h, wd, c, kh, kw, oc, stride, oh, ow, pt, pl,
-                bk, l_i, l_w, out_bits or 0, out_block or 0,
-                mma_tile(rows, oc, bk), _stream(dev)), name)
-        _count(LAUNCHES, "bfp_conv2d", name, out_bits, *passes)
-    return out if out_bits is None else (om, os_)
-
-
 def _launch_pformat(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
                     bk: int, stride: int, padding: str):
     """The patch format pass alone, every row in one launch -> the four
@@ -485,10 +437,11 @@ def bfp_conv2d_prequant(x: torch.Tensor, wm_hwio: torch.Tensor,
             # the core); passing x to the core's call would fold them
             xm, xs = _launch_xformat(x, l_i, bk)
             return _launch_mma(xm, xs, wm, ws, bk, stride, padding,
-                               "bfp_conv2d_prequant")
+                               LAUNCHES, "bfp_conv2d", "bfp_conv2d_prequant")
         return _launch_mma(None, None, wm, ws, bk, stride, padding,
-                           "bfp_conv2d_prequant", x=x, l_i=l_i,
-                           out_bits=out_bits, out_block=out_block)
+                           LAUNCHES, "bfp_conv2d", "bfp_conv2d_prequant",
+                           x=x, l_i=l_i, out_bits=out_bits,
+                           out_block=out_block)
     return _launch(x.float().contiguous(), None, wm_hwio.contiguous(),
                    ws.float().contiguous(), l_i, l_w, bk, stride, padding,
                    out_bits, out_block, "bfp_conv2d_prequant")
@@ -512,9 +465,9 @@ def bfp_conv2d_xprequant(xm: torch.Tensor, xs: torch.Tensor,
                                           out_block)
     if mma_core(bk, xm.shape[3], w_hwio.shape[3], out_bits, l_w, out_block):
         return _launch_mma(xm.contiguous(), xs.float().contiguous(), None,
-                           None, bk, stride, padding, "bfp_conv2d_xprequant",
-                           w=w_hwio, l_w=l_w, out_bits=out_bits,
-                           out_block=out_block)
+                           None, bk, stride, padding, LAUNCHES, "bfp_conv2d",
+                           "bfp_conv2d_xprequant", w=w_hwio, l_w=l_w,
+                           out_bits=out_bits, out_block=out_block)
     return _launch(xm.contiguous(), xs.float().contiguous(),
                    w_hwio.float().contiguous(), None, l_i, l_w, bk, stride,
                    padding, out_bits, out_block, "bfp_conv2d_xprequant")
@@ -542,8 +495,9 @@ def bfp_conv2d_xwprequant(xm: torch.Tensor, xs: torch.Tensor,
                 out_block=out_block):
         return _launch_mma(xm.contiguous(), xs.float().contiguous(),
                            wm_hwio.contiguous(), ws.float().contiguous(), bk,
-                           stride, padding, "bfp_conv2d_xwprequant",
-                           out_bits=out_bits, out_block=out_block)
+                           stride, padding, LAUNCHES, "bfp_conv2d",
+                           "bfp_conv2d_xwprequant", out_bits=out_bits,
+                           out_block=out_block)
     return _launch(xm.contiguous(), xs.float().contiguous(),
                    wm_hwio.contiguous(), ws.float().contiguous(), l_i, l_w,
                    bk, stride, padding, out_bits, out_block,

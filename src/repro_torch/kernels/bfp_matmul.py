@@ -16,19 +16,22 @@ other, nor from one core to the other.  Two cores, chosen by
 :func:`matmul_core` (a pure function of shape and policy):
 
 * the int8 ``mma.sync`` core of the convs (``csrc/bfp_mma.cuh``, built
-  into ``csrc/bfp_conv.cu``) takes the matmuls with f32 x that it can
-  run as the 1x1, stride-1, unpadded conv over x viewed as
-  ``[1, B, 1, K]`` and w as ``[1, 1, K, N]``: a (row, K-tile) block of
-  the matmul is a (pixel, channel chunk) block of that conv, and the
-  weight sidecar ``[K // bk, N]`` has the same layout in both.
-  ``bfp_matmul_prequant`` runs the conv's activation format pass and
-  then the core, from one host call; ``bfp_matmul`` (float weights) the
-  inline conv's patch format pass and then the core.  With ``out_bits``
-  (an ``out_block`` that is a multiple of 4) the output format pass
-  follows in the same host call: the activation format pass over the
-  f32 output in ``out_block`` chunks, the requantize epilogue;
+  into ``csrc/bfp_conv.cu``) takes the matmuls that it can run as the
+  1x1, stride-1, unpadded conv over x viewed as ``[1, B, 1, K]`` and w
+  as ``[1, 1, K, N]``: a (row, K-tile) block of the matmul is a (pixel,
+  channel chunk) block of that conv, and the weight sidecar
+  ``[K // bk, N]`` has the same layout in both.  ``bfp_matmul_prequant``
+  runs the conv's activation format pass and then the core, from one
+  host call; ``bfp_matmul`` (float weights) the inline conv's patch
+  format pass and then the core; ``bfp_matmul_xprequant`` (wire x, float
+  weights) the x-prequant conv's route: the weight format pass (the
+  patch pass's weight blocks alone, once per call) and then the core on
+  the wire x.  With ``out_bits`` (an ``out_block`` that is a multiple of
+  4) the output format pass follows in the same host call: the
+  activation format pass over the f32 output in ``out_block`` chunks,
+  the requantize epilogue;
 * the tile kernel (``csrc/bfp_matmul.cu``) takes the rest: the
-  wire-format x of the x- and xw-prequant matmuls, L > 8, blocks that
+  xw-prequant matmul (both operands on the wire), L > 8, blocks that
   are not a power of two from 32 to 512, N % 4 != 0 and an ``out_block``
   of 1 or 2.
 
@@ -36,7 +39,8 @@ The outputs are bit-identical on both.  ``LAUNCHES`` counts kernel
 launches per wrapper (a core launch under the wrapper's own name), under
 ``bfp_matmul_epilogue`` the calls that ran the requantize epilogue, under
 ``bfp_matmul_xformat`` the activation format passes, under
-``bfp_matmul_pformat`` the patch format passes and under
+``bfp_matmul_pformat`` the patch format passes, under
+``bfp_matmul_wformat`` the weight format passes and under
 ``bfp_matmul_oformat`` the output format passes.
 """
 from __future__ import annotations
@@ -62,12 +66,14 @@ __all__ = ["bfp_matmul", "bfp_matmul_prequant", "bfp_matmul_xprequant",
 #: kernel launches per wrapper, incremented only where a kernel launches;
 #: ``bfp_matmul_epilogue`` counts the calls that ran the requantize
 #: epilogue, ``bfp_matmul_xformat`` the activation format passes,
-#: ``bfp_matmul_pformat`` the patch format passes and
-#: ``bfp_matmul_oformat`` the output format passes of the mma core's route
+#: ``bfp_matmul_pformat`` the patch format passes, ``bfp_matmul_wformat``
+#: the weight format passes and ``bfp_matmul_oformat`` the output format
+#: passes of the mma core's routes
 LAUNCHES = {"bfp_matmul": 0, "bfp_matmul_prequant": 0,
             "bfp_matmul_xprequant": 0, "bfp_matmul_xwprequant": 0,
             "bfp_matmul_epilogue": 0, "bfp_matmul_xformat": 0,
-            "bfp_matmul_pformat": 0, "bfp_matmul_oformat": 0}
+            "bfp_matmul_pformat": 0, "bfp_matmul_wformat": 0,
+            "bfp_matmul_oformat": 0}
 
 #: the column tile of the tile kernel's epilogue (``bfp_tile.cuh``
 #: EPI_COLS): an epilogue block must divide it, so each block lies in one
@@ -107,19 +113,26 @@ def check_epilogue(out_bits: Optional[int], out_block: Optional[int],
 
 def matmul_core(prequant_w: bool, bk: int, k: int, n: int, l_i: int,
                 l_w: int, out_bits: Optional[int] = None,
-                out_block: Optional[int] = None) -> str:
-    """"mma" or "tile": the core a matmul with f32 x takes.  As the 1x1
-    conv over ``[1, B, 1, K]``: prequant weights take the mma core where
-    the prequant conv does (``_mma.mma_core``, C = K), float weights where
-    the inline conv does (``_mma.patch_core``), the epilogue included;
-    both need Kp * N within the core's int32 indexing (Kp: K rounded up to
-    a ``bk`` multiple).  B sets no condition: past 2^31 elements x is cut
-    into row blocks.  The wire-format matmuls (x- and xw-prequant) stay on
-    the tile kernel."""
+                out_block: Optional[int] = None,
+                wire_x: bool = False) -> str:
+    """"mma" or "tile": the core a matmul takes (``wire_x``: x arrives in
+    the wire format).  As the 1x1 conv over ``[1, B, 1, K]``: f32 x with
+    prequant weights takes the mma core where the prequant conv does
+    (``_mma.mma_core``, C = K), f32 x with float weights where the inline
+    conv does (``_mma.patch_core``), wire x with float weights where the
+    x-prequant conv does (``_mma.mma_core`` with the weight's L, bk | K),
+    the epilogue included; each needs Kp * N within the core's int32
+    indexing (Kp: K rounded up to a ``bk`` multiple).  B sets no
+    condition: past 2^31 elements x is cut into row blocks.  The
+    xw-prequant matmul (both operands on the wire) stays on the tile
+    kernel."""
     kp = -(-k // bk) * bk
     if k < 1 or kp * n > _INT_MAX:
         return "tile"
-    if prequant_w:
+    if wire_x:
+        on_mma = not prequant_w and mma_core(bk, k, n, out_bits, l_w,
+                                             out_block)
+    elif prequant_w:
         on_mma = mma_core(bk, k, n, out_bits, l_i, out_block)
     else:
         on_mma = patch_core(bk, n, out_bits, l_i, l_w, out_block)
@@ -375,18 +388,45 @@ def _launch_patch(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
     n = w.shape[1]
     rows = _INT_MAX // (-(-k // bk) * bk)
     if m > rows:
-        parts = [_launch_patch(x[r0:r0 + rows], w, l_i, l_w, bk, out_bits,
-                               out_block, layer and r0 == 0)
-                 for r0 in range(0, m, rows)]
-        if out_bits is None:
-            return torch.cat(parts)
-        return tuple(torch.cat(p) for p in zip(*parts))
-    out = _mma._launch_patch(x.reshape(1, m, 1, k), w.reshape(1, 1, k, n),
-                             l_i, l_w, bk, 1, "VALID", LAUNCHES,
-                             "bfp_matmul", out_bits, out_block, layer)
-    if out_bits is None:
+        return _mma._by_rows(lambda r0, r1, first: _launch_patch(
+            x[r0:r1], w, l_i, l_w, bk, out_bits, out_block, layer and first),
+            m, rows, out_bits)
+    return _as_matmul(_mma._launch_patch(
+        x.reshape(1, m, 1, k), w.reshape(1, 1, k, n), l_i, l_w, bk, 1,
+        "VALID", LAUNCHES, "bfp_matmul", out_bits, out_block, layer), m, n,
+        out_block)
+
+
+def _as_matmul(out, m: int, n: int, out_block: Optional[int]) -> Out:
+    """A 1x1 conv's output over ``[1, M, 1, N]`` (f32, or the wire pair)
+    as the matmul's ``[M, N]``."""
+    if isinstance(out, torch.Tensor):
         return out.reshape(m, n)
     return out[0].reshape(m, n), out[1].reshape(m, n // out_block)
+
+
+def _launch_wire(xm: torch.Tensor, xs: torch.Tensor, w: torch.Tensor,
+                 l_w: int, bk: int, out_bits: Optional[int] = None,
+                 out_block: Optional[int] = None, layer: bool = True) -> Out:
+    """The x-prequant matmul on the mma core: the x-prequant conv's route
+    (one host call: the weight format pass, the core on the wire x and,
+    with ``out_bits``, the output format pass) over x viewed as
+    ``[1, B, 1, K]`` with steps ``[1, B, 1, K // bk]`` and w as
+    ``[1, 1, K, N]``, stride 1, VALID.  An x of more than 2^31 elements
+    runs as row blocks, each its own call (never when served)."""
+    m, k = xm.shape
+    n = w.shape[1]
+    rows = _INT_MAX // k
+    if m > rows:
+        return _mma._by_rows(lambda r0, r1, first: _launch_wire(
+            xm[r0:r1], xs[r0:r1], w, l_w, bk, out_bits, out_block,
+            layer and first), m, rows, out_bits)
+    return _as_matmul(_mma._launch_mma(
+        xm.contiguous().reshape(1, m, 1, k),
+        xs.float().contiguous().reshape(1, m, 1, k // bk), None, None, bk,
+        1, "VALID", LAUNCHES, "bfp_matmul", "bfp_matmul_xprequant",
+        w=w.reshape(1, 1, k, n), l_w=l_w, out_bits=out_bits,
+        out_block=out_block, layer=layer), m, n, out_block)
 
 
 def _check_operands(x_shape, w_shape, bk, xs=None, ws=None) -> None:
@@ -455,6 +495,9 @@ def bfp_matmul_xprequant(xm: torch.Tensor, xs: torch.Tensor, w: torch.Tensor,
     if xm.device.type == "cpu":
         return bfp_matmul_xprequant_plain(xm, xs, w, l_i, l_w, bk, out_bits,
                                           out_block)
+    if matmul_core(False, bk, xm.shape[1], w.shape[1], l_i, l_w, out_bits,
+                   out_block, wire_x=True) == "mma":
+        return _launch_wire(xm, xs, w, l_w, bk, out_bits, out_block)
     return _launch(xm.contiguous(), xs.float().contiguous(),
                    w.float().contiguous(), None, l_i, l_w, bk, out_bits,
                    out_block, "bfp_matmul_xprequant")

@@ -13,21 +13,26 @@ clipped to ``+-(2^(bits-1) - 1)`` and then stored as int8 the way XLA
 converts — saturated to [-128, 127], NaN to 0 — so ``bits > 8`` saturates.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
-it launches ``csrc/bfp_quantize.cu`` (built on first use) or raises.
+it launches ``csrc/bfp_quantize.cu`` (built on first use) or raises: one
+launch per call, on the vector path (one read of x, 16-byte loads and
+stores) when ``K % 16 == 0``, ``bk % 16 == 0``, ``bk <= 512`` and x
+starts on 16 bytes, else on the scalar path (:func:`kernel_path`).  The
+host side is kept lean for the many small weights of a model: no pad,
+no slice, no ``torch.cuda.Stream`` object, a cached ctypes function.
 ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.bfp import pow2
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _mma
 from repro_torch.kernels.bfp_matmul import _floor_log2
 
-__all__ = ["bfp_quantize", "bfp_quantize_plain", "LAUNCHES"]
+__all__ = ["bfp_quantize", "bfp_quantize_plain", "kernel_path", "LAUNCHES"]
 
 #: kernel launches, incremented only where the kernel launches
 LAUNCHES = {"bfp_quantize": 0}
@@ -62,14 +67,30 @@ def bfp_quantize_plain(x: torch.Tensor, bits: int,
     return m.contiguous(), e.reshape(m_rows, n_t)
 
 
+_LIB: Optional[ctypes.CDLL] = None
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("bfp_quantize")
-    fn = lib.bfp_quantize_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+    """``csrc/bfp_quantize.cu``, its argument types set once."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("bfp_quantize")
+        lib.bfp_quantize_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.bfp_quantize_launch.restype = ctypes.c_int
+        lib.bfp_quantize_vector_path.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2)
+        lib.bfp_quantize_vector_path.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def kernel_path(x: torch.Tensor, m: torch.Tensor, bk: int) -> str:
+    """"vector" or "scalar": the path the kernel takes for CUDA x [M, K]
+    and its int8 output m, as the launch decides it (shape and
+    alignment)."""
+    return ("vector" if _lib().bfp_quantize_vector_path(
+        x.data_ptr(), m.data_ptr(), x.shape[1], bk) else "scalar")
 
 
 def bfp_quantize(x: torch.Tensor, *, bits: int,
@@ -86,18 +107,15 @@ def bfp_quantize(x: torch.Tensor, *, bits: int,
     if max(m_rows, k) > _INT_MAX:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's "
                          f"int32 indexing")
-    x = x.float().contiguous()
-    m = torch.empty((m_rows, k), dtype=torch.int8, device=x.device)
-    e = torch.empty((m_rows, -(-k // bk)), dtype=torch.int32,
-                    device=x.device)
-    if m.numel():
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = _lib().bfp_quantize_launch(x.data_ptr(), m.data_ptr(),
-                                            e.data_ptr(), m_rows, k, bk,
-                                            bits, stream)
-        if rc:
-            raise RuntimeError(f"bfp_quantize kernel launch failed: CUDA "
-                               f"error {rc}")
+    if x.dtype is not torch.float32 or not x.is_contiguous():
+        x = x.float().contiguous()
+    dev = x.device
+    m = torch.empty((m_rows, k), dtype=torch.int8, device=dev)
+    e = torch.empty((m_rows, -(-k // bk)), dtype=torch.int32, device=dev)
+    if m_rows and k:
+        with _mma._on(dev):
+            _mma._raise_on(_lib().bfp_quantize_launch(
+                x.data_ptr(), m.data_ptr(), e.data_ptr(), m_rows, k, bk,
+                bits, _mma._stream(dev)), "bfp_quantize")
         LAUNCHES["bfp_quantize"] += 1
     return m, e

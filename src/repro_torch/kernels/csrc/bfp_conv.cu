@@ -6,14 +6,16 @@
 // (bfp_conv_patch_launch: the pass, then the core as a 1x1 conv over the
 // patch matrix), and the x-prequant conv with float weights, after that
 // pass's weight blocks alone (bfp_conv_mma_launch with w).  The matmuls
-// with f32 x run on the same core as 1x1 convs: bfp_matmul_mma_launch
-// below for prequant weights, and bfp_conv_patch_launch over x viewed as
-// [1, B, 1, K] for float weights.  With out_bits, each of these routes
-// ends in the requantize epilogue as a third pass: the activation format
-// pass over the core's f32 output in out_block chunks (oformat below).
-// L > 8, blocks that are not a power of two from 32 to 512, OC % 4 != 0,
-// an out_block that is not a multiple of 4 and the wire-format matmuls
-// run on the tile kernel, as follows.
+// run on the same core as 1x1 convs over x viewed as [1, B, 1, K]:
+// bfp_matmul_mma_launch below for f32 x and prequant weights,
+// bfp_conv_patch_launch for f32 x and float weights, and
+// bfp_conv_mma_launch with w for wire-format x and float weights.  With
+// out_bits, each of these routes ends in the requantize epilogue as a
+// third pass: the activation format pass over the core's f32 output in
+// out_block chunks (oformat below).  L > 8, blocks that are not a power
+// of two from 32 to 512, OC % 4 != 0, an out_block that is not a
+// multiple of 4 and the matmul with both operands on the wire run on the
+// tile kernel, as follows.
 //
 // Fused implicit-im2col BFP convolution on the tile kernel:
 // NHWC x [B, H, W, C] (*) HWIO w [KH, KW, C, OC] -> f32 [B, OH, OW, OC],
@@ -250,7 +252,8 @@ extern "C" int bfp_matmul_mma_launch(const void* x, const void* wm,
 //    xm/xs first (L = l_i): the prequant conv;
 //  * w (f32 GEMM-view weight [K, OC], else null): the patch format pass's
 //    weight blocks alone write it into wm/ws first (L = l_w), once per
-//    call: the x-prequant conv with float weights.  bk | C, so Kp = K and
+//    call: the x-prequant conv with float weights, and the x-prequant
+//    matmul as the 1x1 conv over [1, B, 1, K].  bk | C, so Kp = K and
 //    these are the tile kernel's inline w blocks of that mode, which the
 //    tile kernel formed again for every 64-row output tile;
 //  * out_bits: the output format pass then writes om [M, OC] and os

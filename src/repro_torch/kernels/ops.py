@@ -13,8 +13,8 @@ Model code reaches these through ``repro_torch.engine`` (backend
 "cuda", also registered as "pallas"), never directly.
 
 ``bfp_quantize`` is the offline block-formatting entry point (a weight
-matrix to int8 mantissas + int32 exponents), padded exactly as
-``repro``'s wrapper pads it.
+matrix to int8 mantissas + int32 exponents): one kernel launch per
+call, with the outputs of ``repro``'s padded wrapper and no padding.
 
 ``x2d``/``x`` may be the activation wire format ``{"m", "s"}`` (int8
 mantissas + f32 steps per (row or pixel, K-chunk), a previous layer's
@@ -32,14 +32,13 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.policy import BFPPolicy
 from repro_torch.core.prequant import act_block, is_prequant, prequant_act
 from repro_torch.kernels import bfp_conv as KC
 from repro_torch.kernels import bfp_matmul as KM
 from repro_torch.kernels import bfp_quantize as KQ
-from repro_torch.tune.tables import aligned_tile, fallback_block_k
+from repro_torch.tune.tables import fallback_block_k
 
 __all__ = ["bfp_matmul", "bfp_matmul_prequant", "bfp_conv2d",
            "bfp_conv2d_prequant", "bfp_quantize"]
@@ -176,12 +175,10 @@ def bfp_conv2d_prequant(x: ActOrTensor, wm_hwio: torch.Tensor,
 def bfp_quantize(x: torch.Tensor, bits: int,
                  block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """[M, K] -> (int8 mantissas [M, K], int32 exponents
-    [M, ceil(K / block_k)]), one block per (row, K-tile).  Zero-pads to
-    (rows: a multiple of ``aligned_tile(M, 256)``, K: a ``block_k``
-    multiple) and slices back, as ``repro`` does; zeros never change a
-    block's amax."""
-    m_rows, k = x.shape
-    bm = aligned_tile(m_rows, 256)
-    xp = F.pad(x.float(), (0, (-k) % block_k, 0, (-m_rows) % bm))
-    m, e = KQ.bfp_quantize(xp, bits=bits, bk=block_k)
-    return m[:m_rows, :k], e[:m_rows, :-(-k // block_k)]
+    [M, ceil(K / block_k)]), one block per (row, K-tile).  ``repro`` pads
+    rows to ``aligned_tile(M, 256)`` and K to a ``block_k`` multiple and
+    slices back; nothing is padded here: rows are independent, the kernel
+    masks the ragged last K-tile and the plain version zero-pads K
+    itself, and zeros never change a block's amax, so the outputs are
+    the same."""
+    return KQ.bfp_quantize(x, bits=bits, bk=block_k)

@@ -368,7 +368,9 @@ CONV_ROUTES = [
     ("out_block None", (True, True, 128, 256, 256, 8, 8, 8, None), "tile"),
     ("inline L_I 9 epi", (False, False, 128, 64, 64, 9, 8, 8, 32), "tile"),
 ]
-# matmul_core(prequant_w, bk, K, N, L_I, L_W, out_bits, out_block)
+# matmul_core(prequant_w, bk, K, N, L_I, L_W, out_bits, out_block[,
+# wire_x]): the wire-x matmul with float weights (chain B's fc7-8) takes
+# the mma core where the x-prequant conv does; xw (chain A) stays on tile
 MM_ROUTES = [
     ("fc6 prequant epi", (True, 128, 25088, 4096, 8, 8, 8, 128), "mma"),
     ("fc6 inline epi", (False, 128, 25088, 4096, 8, 8, 8, 128), "mma"),
@@ -376,6 +378,22 @@ MM_ROUTES = [
     ("out_block 2", (True, 128, 2048, 1000, 8, 8, 8, 2), "tile"),
     ("out_block !| N", (True, 128, 2048, 1000, 8, 8, 8, 16), "tile"),
     ("L_I 12 epi", (True, 128, 2048, 1024, 12, 8, 8, 8), "tile"),
+    ("fc7 wire x epi", (False, 128, 4096, 4096, 8, 8, 8, 128, True), "mma"),
+    ("fc8 wire x", (False, 128, 4096, 1000, 8, 8, None, None, True), "mma"),
+    ("wire x bk 32 ob 4", (False, 32, 512, 44, 8, 4, 6, 4, True), "mma"),
+    ("wire x bk 512", (False, 512, 1024, 128, 8, 8, 3, 32, True), "mma"),
+    ("wire x L_I 12", (False, 128, 4096, 4096, 12, 8, None, None, True),
+     "mma"),
+    ("wire x L_W 9", (False, 128, 4096, 4096, 8, 9, 8, 128, True), "tile"),
+    ("wire x N 1002", (False, 128, 4096, 1002, 8, 8, None, None, True),
+     "tile"),
+    ("wire x out_block 2", (False, 128, 4096, 1000, 8, 8, 8, 2, True),
+     "tile"),
+    ("wire x bk 96", (False, 96, 4032, 1000, 8, 8, None, None, True),
+     "tile"),
+    ("xw wire", (True, 128, 4096, 4096, 8, 8, 8, 128, True), "tile"),
+    ("xw wire f32", (True, 128, 4096, 1000, 8, 8, None, None, True),
+     "tile"),
 ]
 
 

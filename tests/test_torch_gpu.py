@@ -513,7 +513,7 @@ def test_cuda_bfp_quantize_matches_plain_version(cuda):
     4..12 (int8 saturation above 8), zero/inf/NaN blocks and half-way
     mantissas: ``torch.equal`` to its plain version on the card and on
     the CPU, through the kernel wrapper (ragged edge in the kernel) and
-    through ``ops`` (padded as repro pads)."""
+    through ``ops`` (unpadded, one launch a call)."""
     before = K.launch_counts()["bfp_quantize"]
     for case in Q_CASES:
         _, _, bk, bits = case
@@ -528,6 +528,109 @@ def test_cuda_bfp_quantize_matches_plain_version(cuda):
             assert torch.equal(g.cpu(), w), case
     torch.cuda.synchronize()
     assert K.launch_counts()["bfp_quantize"] == before + 2 * len(Q_CASES)
+
+
+# ((M, K, bk, bits), path): the vector path (K % 16 == 0, bk % 16 == 0,
+# bk <= 512, 16-byte aligned) at blocks 16, 32, 48 (a 4-lane group of 3),
+# 128 and 512, ragged last tiles, a 64 x 64 weight and M = 1000; the
+# scalar path at ragged K and at blocks 8 and 1024
+Q_PATH_CASES = [((1000, 4608, 32, 8), "vector"), ((64, 64, 128, 8), "vector"),
+                ((37, 2304, 512, 4), "vector"), ((40, 480, 48, 12), "vector"),
+                ((9, 144, 16, 6), "vector"), ((1000, 2047, 128, 8), "scalar"),
+                ((6, 96, 8, 8), "scalar"), ((7, 2048, 1024, 9), "scalar")]
+
+
+@pytest.mark.gpu
+def test_cuda_bfp_quantize_vector_and_scalar_paths(cuda):
+    """Each path of the block-formatting kernel against the plain version
+    on the card, bit-equal (zero, NaN, inf, -inf and half-way blocks):
+    the path is the one the launch reports for the shape, one launch per
+    call; an x that starts 4 bytes off 16-byte alignment (a contiguous
+    view at an offset) takes the scalar path and stays equal."""
+    for case, path in Q_PATH_CASES:
+        m, k, bk, bits = case
+        x = t(q_inputs(case))
+        xc = x.to(cuda)
+        probe = torch.empty((m, k), dtype=torch.int8, device=cuda)
+        assert KQ.kernel_path(xc, probe, bk) == path, case
+        got, counts = _counted(lambda: KQ.bfp_quantize(xc, bits=bits,
+                                                       bk=bk))
+        assert counts == {"bfp_quantize": 1}, (case, counts)
+        for g, w in zip(got, KQ.bfp_quantize_plain(x, bits, bk)):
+            assert torch.equal(g.cpu(), w), case
+    m, k, bk, bits = 300, 1024, 128, 8
+    x = t(q_inputs((m, k, bk, bits)))
+    flat = torch.zeros(m * k + 1, device=cuda)
+    xo = flat[1:].view(m, k)
+    xo.copy_(x.to(cuda))
+    probe = torch.empty((m, k), dtype=torch.int8, device=cuda)
+    assert xo.is_contiguous() and xo.data_ptr() % 16 == 4
+    assert KQ.kernel_path(xo, probe, bk) == "scalar"
+    assert KQ.kernel_path(xo.clone(), probe, bk) == "vector"
+    for g, w in zip(ops.bfp_quantize(xo, bits, bk),
+                    KQ.bfp_quantize_plain(x, bits, bk)):
+        assert torch.equal(g.cpu(), w)
+    torch.cuda.synchronize()
+
+
+# (B, K, N, bk, L_W, out_bits, out_block) of the wire-x matmul on the
+# mma core: chain B's fc7 and fc8 at batch 8, M = 1 and 17, blocks 32,
+# 128 and 512, out_block 4 and 128
+WX_MM_CASES = [(8, 4096, 4096, 128, 8, 8, 128),
+               (8, 4096, 1000, 128, 8, None, None),
+               (1, 4096, 1000, 512, 4, 6, 8), (17, 1536, 36, 32, 8, 3, 4),
+               (17, 2048, 256, 512, 6, 8, 128)]
+
+
+@pytest.mark.gpu
+def test_cuda_wire_x_matmul_on_the_mma_core(cuda):
+    """The x-prequant matmul (wire x, float w) on the mma core against its
+    plain version on the card, bit-equal, with an all-zero x block, wire
+    steps that are inf, NaN and subnormal and an inf weight: each call
+    launches the weight format pass and the core (and with ``out_bits``
+    the output format pass) from one host call; L_W = 9, N = 30 and
+    out_block = 2 keep the tile kernel."""
+    for case in WX_MM_CASES:
+        b, k, n, bk, lw, ob_bits, ob = case
+        x = t(normal((b, k), seed=k + n, scale=2.0)).to(cuda)
+        x[0, :bk] = 0.0
+        xq = prequant_act(x, TPU_TILED.with_(block_k=bk,
+                                             straight_through=False))
+        xm, xs = xq["m"], xq["s"]
+        xs[0, -1] = float("inf")
+        xs[-1, 0] = float("nan")
+        if b > 2:
+            xs[1, 0] = 1e-40
+        w = t(normal((k, n), seed=n, scale=0.02)).to(cuda)
+        w[k // 3, 1] = float("inf")
+        epi = dict(out_bits=ob_bits, out_block=ob)
+        assert KM.matmul_core(False, bk, k, n, 8, lw, ob_bits, ob,
+                              wire_x=True) == "mma", case
+        want_counts = {"bfp_matmul_xprequant": 1, "bfp_matmul_wformat": 1}
+        if ob_bits is not None:
+            want_counts.update(bfp_matmul_oformat=1, bfp_matmul_epilogue=1)
+        got, counts = _counted(lambda: KM.bfp_matmul_xprequant(
+            xm, xs, w, l_i=8, l_w=lw, bk=bk, **epi))
+        assert counts == want_counts, (case, counts)
+        _both_equal(got, KM.bfp_matmul_xprequant_plain(
+            xm, xs, w, 8, lw, bk, ob_bits, ob), case)
+        # the tile kernel's cases
+        tile_cases = (("L9", 9, w, ob), ("N30", lw, w[:, :30].contiguous(),
+                                         None), ("ob2", lw, w, 2))
+        for label, lw2, w2, ob2 in tile_cases:
+            bits2 = None if ob2 is None else (ob_bits or 8)
+            assert KM.matmul_core(False, bk, k, w2.shape[1], 8, lw2, bits2,
+                                  ob2, wire_x=True) == "tile", label
+            got, counts = _counted(lambda: KM.bfp_matmul_xprequant(
+                xm, xs, w2, l_i=8, l_w=lw2, bk=bk, out_bits=bits2,
+                out_block=ob2))
+            assert counts == ({"bfp_matmul_xprequant": 1} if bits2 is None
+                              else {"bfp_matmul_xprequant": 1,
+                                    "bfp_matmul_epilogue": 1}), \
+                (label, case, counts)
+            _both_equal(got, KM.bfp_matmul_xprequant_plain(
+                xm, xs, w2, 8, lw2, bk, bits2, ob2), (label, case))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
