@@ -37,7 +37,13 @@ raises (and so exits non-zero) when it fails:
    the mma core after its weight format pass (each pass also alone) at
    chain B's fc7 and fc8 (batch 8), at M = 1 and 17, blocks 32, 128 and
    512, out_block 4 and 128, with hazard rows and wire steps, and one
-   case per tile-kernel fallback (L_W = 9, N = 30, out_block = 2);
+   case per tile-kernel fallback (L_W = 9, N = 30, out_block = 2); the
+   xw-prequant matmul (both operands on the wire) on the mma core with
+   no format pass (its output pass also alone) at chain A's fc7 and fc8
+   (batch 8), at M = 1 and 17, blocks 32, 128 and 512, out_block 4 and
+   128, with hazard rows, inf / NaN / subnormal wire steps and an inf
+   weight step, and one case per tile-kernel fallback (a block of 96,
+   N = 30, out_block = 2);
 4. the main path: full-width VGG16 (224x224x3, 1000 classes, seeded
    random weights) bound with ``PALLAS_TILED`` (strict, prequantized) and
    served through ``CnnServeEngine`` — 16 requests, no failures, no float
@@ -65,10 +71,10 @@ raises (and so exits non-zero) when it fails:
    next)``, no bias or ReLU between.  Plan A binds the phase-4 weights
    prequantized (the xw-prequant kernels), plan B with float weights (the
    x-prequant kernels).  Each plan's launches are counted in its own
-   zeroed run and checked (``CHAIN_LAUNCHES``: every chain conv and fc6
-   on the mma core, each with its format passes; chain B's fc7-8 on the
-   mma core after a weight format pass each, chain A's on the tile
-   kernel), with the epilogue count; every output
+   zeroed run and checked (``CHAIN_LAUNCHES``: every chain layer on the
+   mma core, each with its format passes; chain B's fc7-8 after a weight
+   format pass each, chain A's with none), with the epilogue count;
+   every output
    (wire dicts included) is ``torch.equal`` to the same chain through a
    backend of plain versions, each ``out_policy`` output to
    ``prequant_act`` of the layer's f32 output, and each chain's end to
@@ -106,7 +112,19 @@ raises (and so exits non-zero) when it fails:
    kernel launched while 16 requests are served, served logits equal to
    a direct apply and to a ``PAPER_DEFAULT`` plan, forward time beside
    the kernel forward's;
-10. a JSON line of per-kernel numbers, then the result line
+10. the paper's Table-4 per-layer SNR analysis (``models.cnn.analysis``,
+   a float and a BFP run observed through ``engine.taps``): full-width
+   VGG16 at batch 2 under the paper's policy (EQ4, L=8: the emulated
+   datapath, no kernel launch), its 13 rows printed, every SNR finite,
+   the measured output SNR within the paper's 8.9 dB of the multi-layer
+   model and ReLU within 1.5 dB; full-width ResNet-50 at batch 2 with
+   float weights on the kernels (``R50_T4_BLOCKS``: TILED, block 128
+   where it divides K), launches counted in their own zeroed run
+   (``R50_T4_LAUNCHES``), its 54 rows equal within 1e-4 dB to the same
+   analysis through the plain versions and every site's BFP output
+   ``torch.equal`` to that run's; and a reduced VGG16 whose card rows
+   agree with the CPU's within 1e-3 dB; each with its wall time;
+11. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
@@ -145,7 +163,7 @@ _CONV_CU = "src/repro_torch/kernels/csrc/bfp_conv.cu"
 #: core's route is in bfp_conv.cu, the tile kernel's in bfp_matmul.cu
 _MM_BOTH = {"mma": _CONV_CU, "tile": _MM_CU}
 SOURCES = {"bfp_matmul": _MM_BOTH, "bfp_matmul_prequant": _MM_BOTH,
-           "bfp_matmul_xprequant": _MM_BOTH, "bfp_matmul_xwprequant": _MM_CU,
+           "bfp_matmul_xprequant": _MM_BOTH, "bfp_matmul_xwprequant": _MM_BOTH,
            "bfp_matmul_xformat": _CONV_CU, "bfp_matmul_pformat": _CONV_CU,
            "bfp_matmul_wformat": _CONV_CU,
            "bfp_conv2d": _CONV_CU, "bfp_conv2d_prequant": _CONV_CU,
@@ -244,12 +262,12 @@ Q_SHAPES = ((1000, 2047, 128, 8), (37, 300, 32, 4), (512, 4608, 512, 8),
             (2049, 1153, 128, 8), (64, 147, 32, 8), (300, 96, 512, 4),
             (1000, 4608, 32, 8), (64, 64, 128, 8), (40, 480, 48, 6),
             (2048, 1152, 512, 4))
-#: every chain conv and fc6 run on the mma core: an f32-x layer after its
+#: every chain layer runs on the mma core: an f32-x layer after its
 #: activation (prequant) or patch (inline) format pass, a wire-x conv or
-#: matmul with float weights after its weight format pass, every layer
-#: with an out_policy on the core (7 convs and fc6, and chain B's fc7)
-#: with one output format pass after the core; chain A's fc7-8 (both
-#: operands on the wire) on the tile kernel.  Per chain run at batch 8
+#: matmul with float weights after its weight format pass, a layer with
+#: both operands on the wire (chain A's wire convs and fc7-8) with no
+#: pass, and every layer with an out_policy (7 convs, fc6 and fc7) with
+#: one output format pass after the core.  Per chain run at batch 8
 #: (plan A: weights prequantized; plan B: float weights); 9 layers run
 #: the requantize epilogue each
 CHAIN_LAUNCHES = {
@@ -257,7 +275,7 @@ CHAIN_LAUNCHES = {
                 "bfp_conv2d_prequant": 3, "bfp_conv2d_xformat": 3,
                 "bfp_conv2d_xwprequant": 7, "bfp_conv2d_oformat": 7,
                 "bfp_conv2d_epilogue": 7, "bfp_matmul_prequant": 1,
-                "bfp_matmul_xformat": 1, "bfp_matmul_oformat": 1,
+                "bfp_matmul_xformat": 1, "bfp_matmul_oformat": 2,
                 "bfp_matmul_xwprequant": 2, "bfp_matmul_epilogue": 2,
                 "bfp_matmul_pformat": 0, "bfp_conv2d_wformat": 0,
                 "bfp_matmul_wformat": 0},
@@ -340,6 +358,27 @@ def with_bn_stats(params, gen):
     return params
 
 
+def nan_bits(a):
+    """NaN-aware bit patterns of a tensor or tuple of tensors (hazard
+    inputs make NaN, and ``torch.equal`` says NaN != NaN)."""
+    a = a if isinstance(a, tuple) else (a,)
+    return [torch.where(v.isnan(), torch.full_like(v, float("nan")),
+                        v).view(torch.int32) if v.is_floating_point()
+            else v for v in a]
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(u, v) for u, v in zip(nan_bits(a), nan_bits(b)))
+
+
+def diff(a, b) -> float:
+    """Largest absolute difference of two tensors or tuples, NaN as 0."""
+    a, b = (a if isinstance(a, tuple) else (a,),
+            b if isinstance(b, tuple) else (b,))
+    return max(((u.float() - v.float()).abs().nan_to_num(0.0).max().item()
+                for u, v in zip(a, b)), default=0.0)
+
+
 def weight_at(tree, path):
     """The weight leaf of site ``path`` ("blocks/3/c1", "fc") in a CNN
     tree; a conv+bn site keeps its weight under "conv"."""
@@ -350,6 +389,144 @@ def weight_at(tree, path):
     if "bn" in node:
         node = node["conv"]
     return node["w"]
+
+
+#: the Table-4 phase's ResNet-50 policy: PALLAS_TILED (block 128) wherever
+#: the block divides the site's K; the analysis block-formats each site's
+#: im2col matrix as the datapath does (``bfp_quantize_matrix``), which
+#: needs bk | K, so stage 1 (blocks 0-2: K = 64, 576) takes block 64 and
+#: the stem (K = 147, no power-of-two divisor) one block per patch row.
+#: Every other site is the served policy.
+R50_T4_BLOCKS = (("^stem$", 147), ("^blocks/[0-2]/", 64))
+#: launches of one analysis run of ResNet-50 at that policy: 52 convs on
+#: the mma core after a patch format pass each, the stem (block 147) on
+#: the tile kernel, the fc on the mma core after its patch format pass
+R50_T4_LAUNCHES = {"bfp_conv2d": 53, "bfp_conv2d_pformat": 52,
+                   "bfp_matmul": 1, "bfp_matmul_pformat": 1}
+#: the Table-4 row fields (SNRs in dB)
+T4_FIELDS = ("input_ex", "input_single", "input_multi", "weight_ex",
+             "weight_model", "output_ex", "output_single", "output_multi",
+             "relu_ex")
+
+
+def table4_phase(dev, card, pol, vgg_params, vgg_images, r50_params,
+                 r50_images, gen, launches, detail):
+    """The paper's Table-4 per-layer SNR analysis on the card (see the
+    module docstring, phase 10)."""
+    import math
+
+    from repro_torch import engine as EG
+    from repro_torch import kernels as K
+    from repro_torch.core.policy import BFPPolicy
+    from repro_torch.engine import PolicyMap
+    from repro_torch.models.cnn import MODELS, vgg
+    from repro_torch.models.cnn import analysis as A
+
+    t4 = detail["table4"] = {}
+
+    def run(label, fn):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[label] = K.launch_counts()
+        t4[label] = {"seconds": secs, "rows": [
+            {"path": getattr(r, "name", None) or r.path,
+             **{f: getattr(r, f) for f in T4_FIELDS}} for r in rows]}
+        for r in t4[label]["rows"]:
+            print(f"table4 {label} {r['path']:<14} "
+                  + " ".join(f"{f}={r[f]:.4f}" for f in T4_FIELDS),
+                  flush=True)
+        print(f"table4 {label}: {len(rows)} rows in {secs:.3f} s, launches "
+              f"{ {k: v for k, v in launches[label].items() if v} }  "
+              f"[{card}]", flush=True)
+        return rows
+
+    def db_close(got, want, tol):
+        return all(a == b or abs(a - b) < tol
+                   for g, w in zip(got, want)
+                   for a, b in ((getattr(g, f), getattr(w, f))
+                                for f in T4_FIELDS))
+
+    # full-width VGG16, batch 2, the paper's policy (EQ4, L = 8: the
+    # emulated datapath, no kernel)
+    label = "table4_vgg16"
+    rows = run(label, lambda: A.analyze_vgg(vgg_params, vgg_images[:2].to(
+        dev), BFPPolicy()))
+    vals = [getattr(r, f) for r in rows for f in T4_FIELDS]
+    out_dev = max(abs(r.output_ex - r.output_multi) for r in rows)
+    relu_dev = max(abs(r.relu_ex - r.output_ex) for r in rows)
+    t4[label].update(max_output_dev_db=out_dev, max_relu_dev_db=relu_dev)
+    print(f"table4 {label}: max |output_ex - output_multi| {out_dev:.4f} dB "
+          f"(envelope 8.9), max |relu_ex - output_ex| {relu_dev:.4f} dB "
+          f"(1.5)", flush=True)
+    check([r.name for r in rows] == vgg.conv_names(),
+          f"{label}: rows {[r.name for r in rows]}")
+    check(all(math.isfinite(v) for v in vals), f"{label}: a non-finite SNR")
+    check(out_dev < 8.9, f"{label}: output SNR off the multi-layer model "
+                         f"by {out_dev} dB")
+    check(relu_dev < 1.5, f"{label}: ReLU moved the SNR by {relu_dev} dB")
+    check(not any(launches[label].values()),
+          f"{label}: a kernel ran on the emulated path {launches[label]}")
+
+    # full-width ResNet-50, batch 2, TILED on the kernels with float
+    # weights, and the same analysis through the plain versions
+    def r50_policy(backend):
+        p = pol.with_(backend=backend)
+        return PolicyMap.of(*((pat, p.with_(block_k=blk))
+                              for pat, blk in R50_T4_BLOCKS), default=p)
+
+    def r50_analysis(backend, events):
+        with EG.taps(lambda ev: events.append(ev) if ev.policy is not None
+                     else None):
+            return A.analyze_model(MODELS["resnet50"].apply, r50_params,
+                                   r50_images[:2].to(dev),
+                                   r50_policy(backend))
+
+    label = "table4_resnet50"
+    kev, pev = [], []
+    rows = run(label, lambda: r50_analysis(pol.backend_name, kev))
+    want = {**dict.fromkeys(launches[label], 0), **R50_T4_LAUNCHES}
+    check(launches[label] == want,
+          f"{label}: launches {launches[label]} != {want}")
+    prows = r50_analysis("plain", pev)
+    check(len(rows) == len(prows) == 54 and len(kev) == len(pev) == 54,
+          f"{label}: {len(rows)} / {len(prows)} rows, {len(kev)} / "
+          f"{len(pev)} BFP sites")
+    ydiff = max(diff(a.y, b.y) for a, b in zip(kev, pev))
+    check(all(a.path == b.path and same_bits(a.y, b.y)
+              for a, b in zip(kev, pev)),
+          f"{label}: a site's BFP output differs from the plain-version run "
+          f"(max |diff| {ydiff})")
+    check(db_close(rows, prows, 1e-4),
+          f"{label}: rows differ from the plain-version analysis")
+    check(not any(math.isnan(getattr(r, f)) for r in rows
+                  for f in T4_FIELDS), f"{label}: a NaN SNR")
+    t4[label]["max_output_dev_db"] = max(
+        abs(r.output_ex - r.output_multi) for r in rows)
+    print(f"table4 {label}: {len(rows)} rows equal to the plain-version "
+          f"analysis "
+          f"within 1e-4 dB, every site's BFP output torch.equal to it; max "
+          f"|output_ex - output_multi| "
+          f"{t4[label]['max_output_dev_db']:.4f} dB", flush=True)
+
+    # reduced VGG16: the card's rows against the CPU's (the ones the CPU
+    # tests hold against the reference)
+    label = "table4_vgg16_reduced"
+    small = vgg.init(gen, 10, width_mult=0.25, input_hw=32, fc_dim=64,
+                     device="cpu")
+    xs = torch.randn((2, 32, 32, 3), generator=gen)
+    cpu_rows = A.analyze_vgg(small, xs, BFPPolicy())
+    rows = run(label, lambda: A.analyze_vgg(
+        {k: {n: v.to(dev) for n, v in p.items()} for k, p in small.items()},
+        xs.to(dev), BFPPolicy()))
+    check([r.name for r in rows] == [r.name for r in cpu_rows]
+          and db_close(rows, cpu_rows, 1e-3),
+          f"{label}: card rows differ from the CPU rows by more than 1e-3 dB")
+    print(f"table4 {label}: {len(rows)} card rows within 1e-3 dB of the "
+          f"CPU's", flush=True)
 
 
 def main() -> int:
@@ -784,25 +961,76 @@ def main() -> int:
     wx_mm_case("tile_wx_ob2", "off_path", rnd(17, 1536),
                rnd(1536, 36, scale=0.03), mbk=32, ob=2, hazards=True)
 
-    def nan_bits(a):    # NaN-aware bit patterns (hazard inputs make NaN)
-        a = a if isinstance(a, tuple) else (a,)
-        return [torch.where(v.isnan(), torch.full_like(v, float("nan")),
-                            v).view(torch.int32) if v.is_floating_point()
-                else v for v in a]
+    # the xw-prequant matmul (both operands on the wire) on the mma core,
+    # as the 1x1 conv over [1, M, 1, K] with no format pass; its output
+    # pass also alone
+    def xw_mm_case(label, path, x, w, mbk=bk, lw=8, obits=8, ob=bk,
+                   hazards=False):
+        """``x`` f32 formatted to the wire first (L 8), ``w`` prequantized
+        (L ``lw``); with ``hazards`` x's first block is zero, its wire
+        steps hold an inf, a NaN and a subnormal, and a weight step is
+        inf."""
+        (m, k), n = x.shape, w.shape[1]
+        core = KM.matmul_core(True, mbk, k, n, 8, lw, obits, ob,
+                              wire_x=True)
+        check(core == ("tile" if label.startswith("tile_") else "mma"),
+              f"{label}: xw matmul routed to the {core} core")
+        if hazards:
+            x[0, :mbk] = 0.0
+        xm, xs = KC.bfp_conv2d_xformat_plain(x.reshape(1, m, 1, k), 8, mbk)
+        xm, xs = xm.reshape(m, k), xs.reshape(m, k // mbk)
+        d = prequant_leaf(w, pol.with_(block_k=mbk, l_w=lw))
+        wm, ws = d["m"], d["s"]
+        if hazards:
+            xs[0, -1] = float("inf")
+            xs[-1, 0] = float("nan")
+            xs[m // 2, 1] = 1e-40
+            ws[k // mbk // 2, 1] = float("inf")
+        cases.append((label, path, "bfp_matmul_xwprequant",
+                      lambda: KM.bfp_matmul_xwprequant(
+                          xm, xs, wm, ws, l_i=8, l_w=lw, bk=mbk,
+                          out_bits=obits, out_block=ob),
+                      lambda: KM.bfp_matmul_xwprequant_plain(
+                          xm, xs, wm, ws, 8, lw, mbk, obits, ob),
+                      {"m": xm, "s": xs}, (wm, ws), m, n, k, core))
+        if core == "mma" and obits is not None:     # its output pass alone
+            y4 = KM.bfp_matmul_xwprequant_plain(xm, xs, wm, ws, 8, lw,
+                                                mbk).reshape(1, m, 1, n)
+            cases.append((label, path, "bfp_matmul_oformat",
+                          lambda: KC.bfp_conv2d_xformat(y4, l_i=obits,
+                                                        bk=ob),
+                          lambda: KC.bfp_conv2d_xformat_plain(y4, obits, ob),
+                          y4, (), m * n // ob, ob, 0, core))
 
-    def diff(a, b):
-        a, b = (a if isinstance(a, tuple) else (a,),
-                b if isinstance(b, tuple) else (b,))
-        return max(((u.float() - v.float()).abs().nan_to_num(0.0).max().item()
-                    for u, v in zip(a, b)), default=0.0)
+    # chain A's fc7 (out_policy for fc8) and fc8 at batch 8
+    xw_mm_case("fc7", "chain_A", rnd(b, 4096, relu=True),
+               rnd(4096, 4096, scale=0.02))
+    xw_mm_case("fc8", "chain_A", rnd(b, 4096, relu=True),
+               rnd(4096, 1000, scale=0.02), obits=None)
+    # M = 1 and 17, blocks 512, 32 and 128, out_block 8, 4 and 128, L_W 4
+    # and 6, hazards
+    xw_mm_case("xw_M1_bk512", "off_path", rnd(1, 4096),
+               rnd(4096, 1000, scale=0.02), mbk=512, lw=4, obits=6, ob=8,
+               hazards=True)
+    xw_mm_case("xw_M17_bk32", "off_path", rnd(17, 1536),
+               rnd(1536, 36, scale=0.03), mbk=32, obits=3, ob=4,
+               hazards=True)
+    xw_mm_case("xw_M17_ob128", "off_path", rnd(17, 2048),
+               rnd(2048, 256, scale=0.03), lw=6, ob=128, hazards=True)
+    # the tile kernel keeps a block of 96, N % 4 != 0 and out_block = 2
+    xw_mm_case("tile_xw_bk96", "off_path", rnd(17, 1536),
+               rnd(1536, 36, scale=0.03), mbk=96, ob=4, hazards=True)
+    xw_mm_case("tile_xw_N30", "off_path", rnd(17, 1536),
+               rnd(1536, 30, scale=0.03), mbk=32, obits=None, hazards=True)
+    xw_mm_case("tile_xw_ob2", "off_path", rnd(17, 1536),
+               rnd(1536, 36, scale=0.03), mbk=32, ob=2, hazards=True)
 
     errs = {}
     for label, path, name, call, plain, x, *_, core in cases:
         got, want = call(), plain()
         torch.cuda.synchronize()
         err = diff(got, want)
-        equal = all(torch.equal(u, v) for u, v in zip(nan_bits(got),
-                                                      nan_bits(want)))
+        equal = same_bits(got, want)
         shape = tuple((got[0] if isinstance(got, tuple) else got).shape)
         print(f"check {label:<11} {path:<14} {name:<20} {shape} "
               f"torch.equal={equal} max_abs_diff={err} core={core}",
@@ -1014,9 +1242,8 @@ def main() -> int:
                     fplain = lambda: KC.bfp_conv2d_xformat_plain(  # noqa
                         fx, pol.l_i, kb)
                     got, want = fmt(), fplain()
-                    check(all(torch.equal(u, v) for u, v in zip(
-                        nan_bits(got), nan_bits(want))),
-                        f"{label} {path}: format pass != plain")
+                    check(same_bits(got, want),
+                          f"{label} {path}: format pass != plain")
                     errs[fam + "_xformat"] = max(
                         errs.get(fam + "_xformat", 0.0), diff(got, want))
                     fb, fby = bound(x, (), got, x.numel() // kb, kb, 0)
@@ -1035,9 +1262,8 @@ def main() -> int:
                     fplain = lambda: KC.bfp_conv2d_pformat_plain(  # noqa
                         fx, fw, pol.l_i, pol.l_w, pol.block_k, fs, fp)
                     got, want = fmt(), fplain()
-                    check(all(torch.equal(u, v) for u, v in zip(
-                        nan_bits(got), nan_bits(want))),
-                        f"{label} {path}: patch format pass != plain")
+                    check(same_bits(got, want),
+                          f"{label} {path}: patch format pass != plain")
                     errs[fam + "_pformat"] = max(
                         errs.get(fam + "_pformat", 0.0), diff(got, want))
                     fb, fby = bound(x, (w,), got, out.numel() // n, n, 0)
@@ -1235,10 +1461,7 @@ def main() -> int:
                         core = KM.matmul_core(is_prequant(w), kb, k, n,
                                               pol.l_i, pol.l_w, obits, ob,
                                               wire_x=is_prequant(x))
-                    # only the xw-prequant matmuls (chain A's fc7-8) keep
-                    # the tile kernel
-                    check(core == ("tile" if fc and is_prequant(x) and
-                                   is_prequant(w) else "mma"),
+                    check(core == "mma",
                           f"{label} {name}: ran on the {core} core")
                     row = rows[name] = {
                         "kernel": kernel_of(kplan, name, x), "core": core,
@@ -1284,9 +1507,8 @@ def main() -> int:
                                                                 ob)))
                     for tag, pname, pin, pcall, pplain in passes:
                         got, want = pcall(), pplain()
-                        check(all(torch.equal(u, v) for u, v in zip(
-                            nan_bits(got), nan_bits(want))),
-                            f"{label} {name}: {tag} pass != plain")
+                        check(same_bits(got, want),
+                              f"{label} {name}: {tag} pass != plain")
                         errs[pname] = max(errs.get(pname, 0.0),
                                           diff(got, want))
                         pb, pby = bound(pin, (), got, 0, 0, 0)
@@ -1657,7 +1879,11 @@ def main() -> int:
               f"{ems:.4f} ms (TILED kernels: {kernel_ms:.4f} ms)  [{card}]",
               flush=True)
 
-    # -- 10. results ---------------------------------------------------------
+    # -- 10. the paper's Table 4 ---------------------------------------------
+    table4_phase(dev, card, pol, full_params, images, r50_params,
+                 models["resnet50_full"]["images"], gen, launches, detail)
+
+    # -- 11. results ---------------------------------------------------------
     kernels = []
     for name in SOURCES:
         path = next(p for p in launches if launches[p][name] > 0)

@@ -12,7 +12,8 @@ to materialized im2col + :func:`gemm`:
 ``w`` is a float matrix or the prequant ``{"m", "s"}`` wire format;
 ``policy`` is None (float), a BFPPolicy, a PolicyMap, or a bound
 ``Plan`` (``engine.bind``), whose per-site entries then supply the
-resolved policy and backend.
+resolved policy and backend.  Both shims and the Plan entries emit
+``engine.taps`` events from the real datapath (``engine.taps``).
 
 Activation wire format.  ``out_policy=`` asks an execution to emit the
 CONSUMING layer's quantized input ``{"m": int8 [.., N], "s": f32
@@ -46,6 +47,7 @@ from repro_torch.core.prequant import (act_block, dequantize_act,
                                        is_prequant, prequant_act,
                                        quantize_cnn_param_tree)
 from repro_torch.engine import backends as BK
+from repro_torch.engine import taps as TAPS
 from repro_torch.engine.policy_map import PolicyLike, resolve_policy
 
 __all__ = ["gemm", "conv2d", "conv2d_im2col", "prequantize_cnn"]
@@ -210,6 +212,58 @@ def _conv_im2col_exec(x, w, pol, stride, padding, backend=None,
     return _reshape_out(out, (b, oh, ow), oc), be
 
 
+# ---------------------------------------------------------------------------
+# Execute-then-tap (one implementation shared by the per-call shims and
+# the bound Plan entries, so tap events cannot diverge between the two)
+# ---------------------------------------------------------------------------
+
+def _tap_view(y: Any) -> Any:
+    """Dense float view of an execution output for tap observers (taps
+    compare against float references; the wire-format dict is
+    dequantized for observation only — the model still sees the dict)."""
+    return dequantize_act(y) if is_prequant(y) else y
+
+
+def _adopt_transform(out: Any, view: Any, new: Any, out_policy) -> Any:
+    """Fold a transforming tap's replacement back into the datapath: a
+    wire-format output is requantized under the same ``out_policy``, so
+    the change lands on the f32 accumulator before the epilogue."""
+    if new is view:
+        return out
+    if is_prequant(out):
+        return prequant_act(new, out_policy)
+    return new
+
+
+def gemm_and_tap(x, w, pol, backend=None, strict=False, path=None,
+                 out_policy=None, warned=None, noise=None) -> Any:
+    out, be = _gemm_exec(x, w, pol, backend=backend, strict=strict,
+                         path=path, out_policy=out_policy, warned=warned,
+                         noise=noise)
+    if TAPS.active():
+        view = _tap_view(out)
+        new = TAPS.emit("gemm", path, pol, be.name, x, w, view,
+                        float_fn=lambda: _gemm_exec(x, w, None)[0])
+        out = _adopt_transform(out, view, new, out_policy)
+    return out
+
+
+def conv_and_tap(x, w, pol, stride, padding, backend=None, strict=False,
+                 path=None, out_policy=None, warned=None,
+                 noise=None) -> Any:
+    out, be = _conv_exec(x, w, pol, stride, padding, backend=backend,
+                         strict=strict, path=path, out_policy=out_policy,
+                         warned=warned, noise=noise)
+    if TAPS.active():
+        view = _tap_view(out)
+        new = TAPS.emit("conv", path, pol, be.name, x, w, view,
+                        float_fn=lambda: _conv_im2col_exec(
+                            x, w, None, stride, padding)[0],
+                        stride=stride, padding=padding)
+        out = _adopt_transform(out, view, new, out_policy)
+    return out
+
+
 def _plan_cls():
     # engine.plan imports this module; resolve the cycle at call time
     from repro_torch.engine.plan import Plan
@@ -232,8 +286,8 @@ def gemm(x: Any, w: Any, policy: PolicyLike = None, *,
     if isinstance(policy, _plan_cls()):
         return policy.gemm(x, w, path=path, out_policy=out_policy,
                            noise=noise)
-    return _gemm_exec(x, w, resolve_policy(policy, path), path=path,
-                      out_policy=out_policy, noise=noise)[0]
+    return gemm_and_tap(x, w, resolve_policy(policy, path), path=path,
+                        out_policy=out_policy, noise=noise)
 
 
 def conv2d(x: Any, w: Any, policy: PolicyLike = None, *,
@@ -256,8 +310,9 @@ def conv2d(x: Any, w: Any, policy: PolicyLike = None, *,
     if isinstance(policy, _plan_cls()):
         return policy.conv2d(x, w, path=path, stride=stride, padding=padding,
                              out_policy=out_policy, noise=noise)
-    return _conv_exec(x, w, resolve_policy(policy, path), stride, padding,
-                      path=path, out_policy=out_policy, noise=noise)[0]
+    return conv_and_tap(x, w, resolve_policy(policy, path), stride,
+                        padding, path=path, out_policy=out_policy,
+                        noise=noise)
 
 
 def conv2d_im2col(x: Any, w: Any, pol, stride: int = 1,
@@ -266,7 +321,8 @@ def conv2d_im2col(x: Any, w: Any, pol, stride: int = 1,
     """The materialized-im2col route (paper Fig. 1's matrix form) through
     the GEMM engine; :func:`conv2d`'s fallback.  ``pol`` is an already
     resolved BFPPolicy or None; a wire-format ``x`` is dequantized;
-    ``noise`` as in :func:`conv2d`."""
+    ``noise`` as in :func:`conv2d`.  Emits no tap event (the
+    :func:`conv2d` entry does, once per conv site)."""
     return _conv_im2col_exec(x, w, pol, stride, padding,
                              out_policy=out_policy, noise=noise)[0]
 

@@ -39,7 +39,8 @@ from repro_torch.core.prequant import (cnn_rule_path, detect_tree_kind,
                                        is_prequant, map_with_path,
                                        quantize_cnn_param_tree)
 from repro_torch.engine import backends as BK
-from repro_torch.engine.core import _conv_exec, _gemm_exec
+from repro_torch.engine import taps as TAPS
+from repro_torch.engine.core import conv_and_tap, gemm_and_tap
 from repro_torch.engine.policy_map import PolicyLike, PolicyMap, resolve_policy
 
 __all__ = ["Site", "Plan", "bind", "params_to"]
@@ -114,37 +115,39 @@ class Plan:
              out_policy=None, noise=None) -> Any:
         site = self._sites.get(path)
         if site is not None and site.kind == "gemm":
-            return _gemm_exec(x, w, site.policy, backend=site.backend,
-                              path=path, out_policy=out_policy,
-                              noise=noise)[0]
+            return gemm_and_tap(x, w, site.policy, backend=site.backend,
+                                path=path, out_policy=out_policy,
+                                noise=noise)
         # unbound path: per-call resolution (strict kept)
-        return _gemm_exec(x, w, resolve_policy(self.policy, path),
-                          strict=self.strict, path=path,
-                          out_policy=out_policy, warned=self._warned,
-                          noise=noise)[0]
+        return gemm_and_tap(x, w, resolve_policy(self.policy, path),
+                            strict=self.strict, path=path,
+                            out_policy=out_policy, warned=self._warned,
+                            noise=noise)
 
     def conv2d(self, x: Any, w: Any, *, path: Optional[str] = None,
                stride: int = 1, padding: str = "SAME",
                out_policy=None, noise=None) -> Any:
         site = self._sites.get(path)
         if site is not None and site.kind == "conv":
-            return _conv_exec(x, w, site.policy, stride, padding,
-                              backend=site.backend, path=path,
-                              out_policy=out_policy, noise=noise)[0]
-        return _conv_exec(x, w, resolve_policy(self.policy, path), stride,
-                          padding, strict=self.strict, path=path,
-                          out_policy=out_policy, warned=self._warned,
-                          noise=noise)[0]
+            return conv_and_tap(x, w, site.policy, stride, padding,
+                                backend=site.backend, path=path,
+                                out_policy=out_policy, noise=noise)
+        return conv_and_tap(x, w, resolve_policy(self.policy, path), stride,
+                            padding, strict=self.strict, path=path,
+                            out_policy=out_policy, warned=self._warned,
+                            noise=noise)
 
     def jit_forward(self, apply_fn):
         """``apply_fn(plan.params, x, plan)`` as one callable, cached per
         ``apply_fn`` on this plan, so every engine bound to the same plan
         and model shares one object.  PyTorch runs eagerly, so nothing is
-        traced: the callable runs under ``torch.inference_mode()``."""
+        traced: the callable runs under ``torch.inference_mode()`` with
+        tap events suppressed, as ``repro``'s compiled forward emits
+        none (call ``apply_fn`` itself to observe the sites)."""
         fn = self._fwd_cache.get(apply_fn)
         if fn is None:
             def fwd(x, *args, _apply=apply_fn):
-                with torch.inference_mode():
+                with torch.inference_mode(), TAPS.suppressed():
                     return _apply(self.params, x, self, *args)
             fn = fwd
             self._fwd_cache[apply_fn] = fn

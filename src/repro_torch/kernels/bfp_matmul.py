@@ -26,14 +26,14 @@ other, nor from one core to the other.  Two cores, chosen by
   format pass and then the core; ``bfp_matmul_xprequant`` (wire x, float
   weights) the x-prequant conv's route: the weight format pass (the
   patch pass's weight blocks alone, once per call) and then the core on
-  the wire x.  With ``out_bits`` (an ``out_block`` that is a multiple of
-  4) the output format pass follows in the same host call: the
-  activation format pass over the f32 output in ``out_block`` chunks,
-  the requantize epilogue;
-* the tile kernel (``csrc/bfp_matmul.cu``) takes the rest: the
-  xw-prequant matmul (both operands on the wire), L > 8, blocks that
-  are not a power of two from 32 to 512, N % 4 != 0 and an ``out_block``
-  of 1 or 2.
+  the wire x; ``bfp_matmul_xwprequant`` (both operands on the wire) the
+  xw-prequant conv's route: the core alone, no format pass.  With
+  ``out_bits`` (an ``out_block`` that is a multiple of 4) the output
+  format pass follows in the same host call: the activation format pass
+  over the f32 output in ``out_block`` chunks, the requantize epilogue;
+* the tile kernel (``csrc/bfp_matmul.cu``) takes the rest: L > 8 where
+  an operand is formatted here, blocks that are not a power of two from
+  32 to 512, N % 4 != 0 and an ``out_block`` of 1 or 2.
 
 The outputs are bit-identical on both.  ``LAUNCHES`` counts kernel
 launches per wrapper (a core launch under the wrapper's own name), under
@@ -121,17 +121,17 @@ def matmul_core(prequant_w: bool, bk: int, k: int, n: int, l_i: int,
     (``_mma.mma_core``, C = K), f32 x with float weights where the inline
     conv does (``_mma.patch_core``), wire x with float weights where the
     x-prequant conv does (``_mma.mma_core`` with the weight's L, bk | K),
-    the epilogue included; each needs Kp * N within the core's int32
+    and both operands on the wire where the xw-prequant conv does
+    (``_mma.mma_core`` with no L: wire mantissas are int8 whatever their
+    L), the epilogue included; each needs Kp * N within the core's int32
     indexing (Kp: K rounded up to a ``bk`` multiple).  B sets no
-    condition: past 2^31 elements x is cut into row blocks.  The
-    xw-prequant matmul (both operands on the wire) stays on the tile
-    kernel."""
+    condition: past 2^31 elements x is cut into row blocks."""
     kp = -(-k // bk) * bk
     if k < 1 or kp * n > _INT_MAX:
         return "tile"
     if wire_x:
-        on_mma = not prequant_w and mma_core(bk, k, n, out_bits, l_w,
-                                             out_block)
+        on_mma = mma_core(bk, k, n, out_bits, None if prequant_w else l_w,
+                          out_block)
     elif prequant_w:
         on_mma = mma_core(bk, k, n, out_bits, l_i, out_block)
     else:
@@ -406,26 +406,34 @@ def _as_matmul(out, m: int, n: int, out_block: Optional[int]) -> Out:
 
 
 def _launch_wire(xm: torch.Tensor, xs: torch.Tensor, w: torch.Tensor,
-                 l_w: int, bk: int, out_bits: Optional[int] = None,
+                 ws: Optional[torch.Tensor], l_w: int, bk: int,
+                 out_bits: Optional[int] = None,
                  out_block: Optional[int] = None, layer: bool = True) -> Out:
-    """The x-prequant matmul on the mma core: the x-prequant conv's route
-    (one host call: the weight format pass, the core on the wire x and,
-    with ``out_bits``, the output format pass) over x viewed as
-    ``[1, B, 1, K]`` with steps ``[1, B, 1, K // bk]`` and w as
-    ``[1, 1, K, N]``, stride 1, VALID.  An x of more than 2^31 elements
-    runs as row blocks, each its own call (never when served)."""
+    """A wire-x matmul on the mma core, as the wire conv's route over x
+    viewed as ``[1, B, 1, K]`` with steps ``[1, B, 1, K // bk]`` and w
+    as ``[1, 1, K, N]``, stride 1, VALID, in one host call: with a float
+    ``w`` (``ws`` None: the x-prequant matmul) the weight format pass
+    first, with int8 mantissas ``w`` and steps ``ws [K // bk, N]`` (the
+    xw-prequant matmul) no pass; then the core on the wire x and, with
+    ``out_bits``, the output format pass.  An x of more than 2^31
+    elements runs as row blocks, each its own call (never when
+    served)."""
     m, k = xm.shape
     n = w.shape[1]
     rows = _INT_MAX // k
     if m > rows:
         return _mma._by_rows(lambda r0, r1, first: _launch_wire(
-            xm[r0:r1], xs[r0:r1], w, l_w, bk, out_bits, out_block,
+            xm[r0:r1], xs[r0:r1], w, ws, l_w, bk, out_bits, out_block,
             layer and first), m, rows, out_bits)
+    w4 = w.contiguous().reshape(1, 1, k, n)
+    pre = ws is not None
     return _as_matmul(_mma._launch_mma(
         xm.contiguous().reshape(1, m, 1, k),
-        xs.float().contiguous().reshape(1, m, 1, k // bk), None, None, bk,
-        1, "VALID", LAUNCHES, "bfp_matmul", "bfp_matmul_xprequant",
-        w=w.reshape(1, 1, k, n), l_w=l_w, out_bits=out_bits,
+        xs.float().contiguous().reshape(1, m, 1, k // bk),
+        w4 if pre else None, ws.float().contiguous() if pre else None, bk,
+        1, "VALID", LAUNCHES, "bfp_matmul",
+        "bfp_matmul_xwprequant" if pre else "bfp_matmul_xprequant",
+        w=None if pre else w4, l_w=l_w, out_bits=out_bits,
         out_block=out_block, layer=layer), m, n, out_block)
 
 
@@ -497,7 +505,7 @@ def bfp_matmul_xprequant(xm: torch.Tensor, xs: torch.Tensor, w: torch.Tensor,
                                           out_block)
     if matmul_core(False, bk, xm.shape[1], w.shape[1], l_i, l_w, out_bits,
                    out_block, wire_x=True) == "mma":
-        return _launch_wire(xm, xs, w, l_w, bk, out_bits, out_block)
+        return _launch_wire(xm, xs, w, None, l_w, bk, out_bits, out_block)
     return _launch(xm.contiguous(), xs.float().contiguous(),
                    w.float().contiguous(), None, l_i, l_w, bk, out_bits,
                    out_block, "bfp_matmul_xprequant")
@@ -517,6 +525,9 @@ def bfp_matmul_xwprequant(xm: torch.Tensor, xs: torch.Tensor,
     if xm.device.type == "cpu":
         return bfp_matmul_xwprequant_plain(xm, xs, wm, ws, l_i, l_w, bk,
                                            out_bits, out_block)
+    if matmul_core(True, bk, xm.shape[1], wm.shape[1], l_i, l_w, out_bits,
+                   out_block, wire_x=True) == "mma":
+        return _launch_wire(xm, xs, wm, ws, l_w, bk, out_bits, out_block)
     return _launch(xm.contiguous(), xs.float().contiguous(), wm.contiguous(),
                    ws.float().contiguous(), l_i, l_w, bk, out_bits,
                    out_block, "bfp_matmul_xwprequant")

@@ -9,13 +9,13 @@
 // run on the same core as 1x1 convs over x viewed as [1, B, 1, K]:
 // bfp_matmul_mma_launch below for f32 x and prequant weights,
 // bfp_conv_patch_launch for f32 x and float weights, and
-// bfp_conv_mma_launch with w for wire-format x and float weights.  With
-// out_bits, each of these routes ends in the requantize epilogue as a
-// third pass: the activation format pass over the core's f32 output in
-// out_block chunks (oformat below).  L > 8, blocks that are not a power
-// of two from 32 to 512, OC % 4 != 0, an out_block that is not a
-// multiple of 4 and the matmul with both operands on the wire run on the
-// tile kernel, as follows.
+// bfp_conv_mma_launch with w for wire-format x and float weights, and
+// with neither pass for both operands on the wire.  With out_bits, each
+// of these routes ends in the requantize epilogue as a third pass: the
+// activation format pass over the core's f32 output in out_block chunks
+// (oformat below).  L > 8, blocks that are not a power of two from 32 to
+// 512, OC % 4 != 0 and an out_block that is not a multiple of 4 run on
+// the tile kernel, as follows.
 //
 // Fused implicit-im2col BFP convolution on the tile kernel:
 // NHWC x [B, H, W, C] (*) HWIO w [KH, KW, C, OC] -> f32 [B, OH, OW, OC],

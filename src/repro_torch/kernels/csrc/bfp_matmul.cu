@@ -12,14 +12,12 @@
 // the X_PQ / W_PQ template flags of the shared tile kernel (bfp_tile.cuh,
 // which states the arithmetic contract and the design).
 //
-// Which calls still run here: the f32-output matmuls with f32 x that the
-// int8 mma core can take (a power-of-two block from 32 to 512, L <= 8,
-// N % 4 == 0) run on that core as 1x1 convs, from bfp_conv.cu
-// (bfp_matmul_mma_launch for prequant weights, bfp_conv_patch_launch for
-// float weights; kernels/bfp_matmul.py matmul_core).  This tile kernel
-// keeps the requantize epilogue (every chained matmul), the wire-format
-// x of the x- and xw-prequant matmuls, L > 8, other blocks and N % 4 != 0
-// (reduced VGG16's fc8, N = 10).
+// Which calls still run here: every matmul that the int8 mma core can
+// take (a power-of-two block from 32 to 512, L <= 8 where an operand is
+// formatted, N % 4 == 0, an out_block that is a multiple of 4) runs on
+// that core as a 1x1 conv, from bfp_conv.cu (kernels/bfp_matmul.py
+// matmul_core).  This tile kernel keeps L > 8, other blocks, N % 4 != 0
+// (reduced VGG16's fc8, N = 10) and an out_block of 1 or 2.
 //
 // What bounds it on this card: at a batch of a few images the weight
 // stream is the only large operand, so the bound is bytes over the

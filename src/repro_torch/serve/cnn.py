@@ -12,7 +12,9 @@
   * a bind-once ``engine.Plan``: policy resolution, backend selection
     and weight pre-quantization happen at construction
     (``strict_backend=True`` rejects undeployable configs here);
-    engines bound to one plan share one forward (``Plan.jit_forward``).
+    engines bound to one plan share one forward (``Plan.jit_forward``),
+    or with ``jit=False`` run ``apply`` eagerly so that taps see every
+    served site.
 
 Bit-exactness contract: a request served through the engine produces
 exactly the logits of a direct ``apply(plan.params, batch, plan)`` on
@@ -81,11 +83,11 @@ class CnnServeEngine:
     ``float_retry``, ``batching``, ``max_wait``, ``clock``.  ``device`` is
     where the forwards run (default "cuda"); a pre-bound Plan must live
     there.  ``mesh`` is reserved for sharded serving and raises until the
-    dist slice lands.  ``jit`` is accepted and kept as ``self.jit``; it
-    changes nothing yet, since PyTorch runs eagerly and every forward goes
-    through the plan's shared ``Plan.jit_forward``.  ``repro`` serves
-    ``jit=False`` eagerly so that taps see every site: a path of its own
-    is added here when the port has taps.
+    dist slice lands.  ``jit=True`` serves through the plan's shared
+    ``Plan.jit_forward`` (taps suppressed, as in ``repro``'s compiled
+    forward); ``jit=False`` calls ``apply_fn(plan.params, x, plan)``
+    itself, so ``engine.taps`` observe every served site, as ``repro``'s
+    eager engine does.  The logits are the same bits either way.
     """
 
     def __init__(self, params: Any, apply_fn: Callable[..., Any],
@@ -120,7 +122,7 @@ class CnnServeEngine:
         if self.buckets[-1] < 1:
             raise ValueError(f"bad buckets {self.buckets}")
         self.jit = jit
-        self._fwd = self.plan.jit_forward(apply_fn)
+        self._fwd = self._make_fwd(self.plan)
         self._shape: Optional[Tuple[int, ...]] = None
         self._next_rid = 0
         self.max_queue = max_queue
@@ -136,7 +138,7 @@ class CnnServeEngine:
                     "pass a pre-bound Plan when reusing policy=Plan")
             self.fallback_plan: Optional[Plan] = self._plan_for(
                 params, fallback_policy, strict_backend, prequant)
-            self._fb_fwd = self.fallback_plan.jit_forward(apply_fn)
+            self._fb_fwd = self._make_fwd(self.fallback_plan)
             self.controller: Optional[DegradeController] = \
                 DegradeController(degrade or DegradeConfig(queue_high=slots))
         else:
@@ -166,6 +168,16 @@ class CnnServeEngine:
             raise ValueError(f"plan bound on {policy.device}, engine device "
                              f"is {self.device}")
         return policy
+
+    def _make_fwd(self, plan: Plan) -> Callable[..., Any]:
+        if self.jit:
+            return plan.jit_forward(self.apply_fn)
+
+        def fwd(x, _fn=self.apply_fn):
+            with torch.inference_mode():
+                return _fn(plan.params, x, plan)
+
+        return fwd
 
     # -- admission ----------------------------------------------------------
 

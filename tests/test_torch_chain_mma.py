@@ -369,8 +369,9 @@ CONV_ROUTES = [
     ("inline L_I 9 epi", (False, False, 128, 64, 64, 9, 8, 8, 32), "tile"),
 ]
 # matmul_core(prequant_w, bk, K, N, L_I, L_W, out_bits, out_block[,
-# wire_x]): the wire-x matmul with float weights (chain B's fc7-8) takes
-# the mma core where the x-prequant conv does; xw (chain A) stays on tile
+# wire_x]): the wire-x matmuls (chain B's fc7-8 with float weights, chain
+# A's with prequant weights) take the mma core where the x-prequant and
+# xw-prequant convs do
 MM_ROUTES = [
     ("fc6 prequant epi", (True, 128, 25088, 4096, 8, 8, 8, 128), "mma"),
     ("fc6 inline epi", (False, 128, 25088, 4096, 8, 8, 8, 128), "mma"),
@@ -391,9 +392,12 @@ MM_ROUTES = [
      "tile"),
     ("wire x bk 96", (False, 96, 4032, 1000, 8, 8, None, None, True),
      "tile"),
-    ("xw wire", (True, 128, 4096, 4096, 8, 8, 8, 128, True), "tile"),
+    ("xw wire", (True, 128, 4096, 4096, 8, 8, 8, 128, True), "mma"),
     ("xw wire f32", (True, 128, 4096, 1000, 8, 8, None, None, True),
-     "tile"),
+     "mma"),
+    ("xw bk 96", (True, 96, 4032, 1000, 8, 8, None, None, True), "tile"),
+    ("xw N 1002", (True, 128, 4096, 1002, 8, 8, None, None, True), "tile"),
+    ("xw out_block 2", (True, 128, 4096, 1000, 8, 8, 8, 2, True), "tile"),
 ]
 
 

@@ -17,8 +17,9 @@ from repro_torch.kernels import bfp_conv as KC
 from repro_torch.kernels import bfp_matmul as KM
 from repro_torch.kernels import bfp_quantize as KQ
 from repro_torch.kernels import ops
-from repro_torch.core.policy import PAPER_DEFAULT
+from repro_torch.core.policy import BFPPolicy, PAPER_DEFAULT
 from repro_torch.models.cnn import MODELS, vgg
+from repro_torch.models.cnn import analysis as A
 from repro_torch.serve.cnn import CnnServeEngine
 from test_torch_util import (CONV_CASES, MM_CASES, Q_CASES, conv_inputs,
                              hazard_inputs, mm_inputs, normal, pq_k,
@@ -646,3 +647,83 @@ def test_cuda_emulated_datapath_equals_the_cpu(cuda):
     plan = EG.bind(params, PAPER_DEFAULT, device=cuda)
     got = plan.jit_forward(MODELS["lenet"].apply)(x.to(cuda))
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_cuda_xw_matmul_on_the_mma_core(cuda):
+    """The xw-prequant matmul (both operands on the wire) on the mma core
+    against its plain version on the card, bit-equal, with an all-zero x
+    block, x steps that are inf, NaN and subnormal and an inf weight
+    step: each call launches the core alone (and with ``out_bits`` the
+    output format pass) from one host call; a block of 96, N = 30 and
+    out_block = 2 keep the tile kernel."""
+    for case in WX_MM_CASES:
+        b, k, n, bk, lw, ob_bits, ob = case
+        pol = TPU_TILED.with_(block_k=bk, l_w=lw, straight_through=False)
+        x = t(normal((b, k), seed=k + n, scale=2.0)).to(cuda)
+        x[0, :bk] = 0.0
+        xq = prequant_act(x, pol)
+        xm, xs = xq["m"], xq["s"]
+        xs[0, -1] = float("inf")
+        xs[-1, 0] = float("nan")
+        if b > 2:
+            xs[1, 0] = 1e-40
+        d = prequant_leaf(t(normal((k, n), seed=n, scale=0.02)).to(cuda),
+                          pol)
+        d["s"][k // bk - 1, 1] = float("inf")
+        assert KM.matmul_core(True, bk, k, n, 8, lw, ob_bits, ob,
+                              wire_x=True) == "mma", case
+        want_counts = {"bfp_matmul_xwprequant": 1}
+        if ob_bits is not None:
+            want_counts.update(bfp_matmul_oformat=1, bfp_matmul_epilogue=1)
+        got, counts = _counted(lambda: KM.bfp_matmul_xwprequant(
+            xm, xs, d["m"], d["s"], l_i=8, l_w=lw, bk=bk, out_bits=ob_bits,
+            out_block=ob))
+        assert counts == want_counts, (case, counts)
+        _both_equal(got, KM.bfp_matmul_xwprequant_plain(
+            xm, xs, d["m"], d["s"], 8, lw, bk, ob_bits, ob), case)
+    # the tile kernel's cases: block 96, N = 30, out_block 2
+    x = t(normal((17, 1536), seed=5, scale=2.0)).to(cuda)
+    w = t(normal((1536, 36), seed=6, scale=0.03)).to(cuda)
+    for label, bk, n, ob_bits, ob in (("bk96", 96, 36, 8, 4),
+                                      ("N30", 32, 30, None, None),
+                                      ("ob2", 32, 36, 8, 2)):
+        pol = TPU_TILED.with_(block_k=bk, straight_through=False)
+        xq = prequant_act(x, pol)
+        d = prequant_leaf(w[:, :n].contiguous(), pol)
+        assert KM.matmul_core(True, bk, 1536, n, 8, 8, ob_bits, ob,
+                              wire_x=True) == "tile", label
+        got, counts = _counted(lambda: KM.bfp_matmul_xwprequant(
+            xq["m"], xq["s"], d["m"], d["s"], l_i=8, l_w=8, bk=bk,
+            out_bits=ob_bits, out_block=ob))
+        assert counts == ({"bfp_matmul_xwprequant": 1} if ob_bits is None
+                          else {"bfp_matmul_xwprequant": 1,
+                                "bfp_matmul_epilogue": 1}), (label, counts)
+        _both_equal(got, KM.bfp_matmul_xwprequant_plain(
+            xq["m"], xq["s"], d["m"], d["s"], 8, 8, bk, ob_bits, ob), label)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_table4_analysis_equals_the_cpu(cuda):
+    """``analyze_vgg`` on a reduced VGG16 under the paper's policy (the
+    emulated datapath) on the card against the CPU: the same rows within
+    1e-3 dB (the float run's GEMMs sum in another order on each; a
+    non-finite value must be the same value)."""
+    params = vgg.init(torch.Generator().manual_seed(0), 10, width_mult=0.25,
+                      input_hw=32, fc_dim=64, device="cpu")
+    x = t(normal((2, 32, 32, 3), seed=0))
+    want = A.analyze_vgg(params, x, BFPPolicy())
+    gpu_params = {k: {n: v.to(cuda) for n, v in p.items()}
+                  for k, p in params.items()}
+    K.reset_launch_counts()
+    got = A.analyze_vgg(gpu_params, x.to(cuda), BFPPolicy())
+    assert not any(K.launch_counts().values())
+    assert [r.name for r in got] == [r.name for r in want] == \
+        vgg.conv_names()
+    for g, w in zip(got, want):
+        for f in ("input_ex", "input_single", "input_multi", "weight_ex",
+                  "weight_model", "output_ex", "output_single",
+                  "output_multi", "relu_ex"):
+            a, b = getattr(g, f), getattr(w, f)
+            assert a == b or abs(a - b) < 1e-3, (g.name, f, a, b)

@@ -149,8 +149,9 @@ def _serve(engine_cls, params, policy, images, **kw):
 
 
 def test_serve_engine_jit_flag_matches_repro(lenet):
-    """``jit=`` is accepted and kept; either way the engine serves
-    through the plan's shared forward and gives ``repro``'s logits (its
+    """``jit=`` is accepted and kept; ``jit=True`` serves through the
+    plan's shared forward, ``jit=False`` through an eager apply of its
+    own (so taps see the sites), and both give ``repro``'s logits (its
     engine run eagerly too) bit for bit."""
     # c1 (K = 25) at block 25: the emulated TILED datapath needs bk | K
     pol = PolicyMap.of(("^c1$", TPU_TILED.with_(**{**BK16, "block_k": 25})),
@@ -163,7 +164,8 @@ def test_serve_engine_jit_flag_matches_repro(lenet):
     shared, got_jit = _serve(CnnServeEngine, None, plan, images,
                              device="cpu")
     assert eager.jit is False and shared.jit is True
-    assert eager._fwd is shared._fwd is plan.jit_forward(small.lenet_apply)
+    assert shared._fwd is plan.jit_forward(small.lenet_apply)
+    assert eager._fwd is not shared._fwd
     assert_bits_equal(torch.from_numpy(got), got_jit)
     jplan = JEG.bind(lenet, JPolicyMap.of(
         ("^c1$", J_TPU_TILED.with_(**{**BK16, "block_k": 25})),
