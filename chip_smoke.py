@@ -124,7 +124,27 @@ raises (and so exits non-zero) when it fails:
    analysis through the plain versions and every site's BFP output
    ``torch.equal`` to that run's; and a reduced VGG16 whose card rows
    agree with the CPU's within 1e-3 dB; each with its wall time;
-11. a JSON line of per-kernel numbers, then the result line
+11. packed BFP artifacts end to end: phase 4's VGG16 saved
+   ``bfp_packed`` and ``float32`` under a temporary directory (both
+   artifacts' bytes and their ratio printed), a tenant cold-started from
+   the packed one (``serve.tenants.cold_start``: restore, unpack + bind
+   and first forward timed, beside a float32 restore + bind) serving
+   phase 4's 16 requests, logits ``torch.equal`` to phase 4's and
+   launches equal to phase 4's, its sidecars ``torch.equal`` to the
+   float32 artifact's bind; phase 8's ResNet-50 saved ``bfp_packed`` and
+   ``bfp_packed_v2``, each cold-started as a tenant
+   (``add_tenant(checkpoint_dir=)``) and served bit-equal to phase 8 with
+   launches as ``MODEL_LAUNCHES``, and a tenant on the second one's plan
+   (``plan=``) sharing its forward; ResNet-50's packed tree with
+   ``faults.inject_tree`` faults (exponent, mantissa MSB and LSB, BER
+   1e-3, seed 0), each faulty forward on the kernels equal (NaN-aware)
+   to the plain versions', with top-1 agreement and logit SNR against
+   the clean logits; ``faults.endurance_campaign`` (LeNet, CIFARNet, L 6
+   and 8, BER 1e-3 and 1e-2) on the card and on the CPU, rows equal
+   (SNR within 1e-3 dB); the serve CLI (``repro_torch.launch.serve_cnn``)
+   as two subprocesses, ResNet-50 at full width and two tenants, each
+   exiting 0 with its req/s line;
+12. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
@@ -142,8 +162,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -527,6 +550,267 @@ def table4_phase(dev, card, pol, vgg_params, vgg_images, r50_params,
           f"{label}: card rows differ from the CPU rows by more than 1e-3 dB")
     print(f"table4 {label}: {len(rows)} card rows within 1e-3 dB of the "
           f"CPU's", flush=True)
+
+
+#: the campaign of phase 11, run on the card and on the CPU
+CAMPAIGN = {"models": ("lenet", "cifarnet"), "l_values": (6, 8),
+            "bers": (1e-3, 1e-2), "seed": 0}
+#: the serve CLI runs of phase 11 (each a subprocess, on the card)
+CLI_RUNS = (("--model", "resnet50", "--scale", "full", "--requests", "16",
+             "--slots", "8", "--bfp", "--prequant", "--strict-backend"),
+            ("--tenants", "lenet,cifarnet", "--requests", "12", "--bfp"))
+
+
+def dir_bytes(d: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
+def packed_phase(dev, card, pol, detail, vgg_params, vgg_images, vgg_served,
+                 vgg_counts, r50, r50_served):
+    """Packed BFP artifacts end to end on the card (see the module
+    docstring, phase 11)."""
+    from repro_torch import _tree
+    from repro_torch import engine as EG
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import store
+    from repro_torch.core import nsr as NSR
+    from repro_torch.core.packed import is_packed, pack_param_tree
+    from repro_torch.faults import endurance_campaign, inject_tree
+    from repro_torch.models.cnn import MODELS, head_logits, vgg
+    from repro_torch.serve.tenants import MultiTenantServer, cold_start
+
+    out = detail["packed"] = {}
+    sync = torch.cuda.synchronize
+
+    def serve16(srv, name, imgs):
+        reqs = [srv.submit(name, image=imgs[i]) for i in range(16)]
+        K.reset_launch_counts()
+        srv.run()
+        sync()
+        counts = K.launch_counts()
+        check(all(r.done and r.error is None for r in reqs),
+              f"{name}: a request failed")
+        return torch.from_numpy(np.stack([r.logits for r in reqs])), counts
+
+    def packed_leaf_ratio(tree):
+        """Bytes of the packed leaves' containers over their float32
+        bytes."""
+        leaves = [x for x in _tree.flatten(tree, is_leaf=is_packed)[0]
+                  if is_packed(x)]
+        return (sum(x.nbytes for x in leaves)
+                / sum(4 * x.n_elements for x in leaves), len(leaves))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # -- full-width VGG16 from a packed artifact ------------------------
+        label = "packed_vgg16_full"
+        row = out[label] = {}
+        t0 = time.perf_counter()
+        d32 = os.path.join(tmp, "vgg16_f32")
+        store.save(d32, 0, vgg_params)
+        row["save_f32_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dpk = os.path.join(tmp, "vgg16_packed")
+        store.save(dpk, 0, vgg_params, format="bfp_packed", policy=pol)
+        row["save_packed_s"] = time.perf_counter() - t0
+        row["f32_bytes"] = dir_bytes(d32)
+        row["packed_bytes"] = dir_bytes(dpk)
+        row["ratio"] = row["packed_bytes"] / row["f32_bytes"]
+        t0 = time.perf_counter()
+        cparams = cold_start("vgg16", dpk, reduced=False, num_classes=1000,
+                             device=dev)
+        row["restore_s"] = time.perf_counter() - t0
+        row["packed_leaf_ratio"], n_packed = packed_leaf_ratio(cparams)
+        srv = MultiTenantServer(device=dev)
+        t0 = time.perf_counter()
+        ten = srv.add_tenant("vgg16", "vgg16", params=cparams, policy=pol,
+                             prequant=False, strict_backend=True, slots=8)
+        sync()
+        row["unpack_bind_s"] = time.perf_counter() - t0
+        x8 = vgg_images[:8].to(dev)
+        t0 = time.perf_counter()
+        first = head_logits(ten.plan.jit_forward(vgg.apply)(x8)).cpu()
+        sync()
+        row["first_forward_s"] = time.perf_counter() - t0
+        check(torch.equal(first, vgg_served[:8]),
+              f"{label}: first forward differs from phase 4's logits")
+        served, counts = serve16(srv, "vgg16", vgg_images)
+        check(torch.equal(served, vgg_served),
+              f"{label}: served logits differ from phase 4's (max |diff| "
+              f"{diff(served, vgg_served)})")
+        check(counts == vgg_counts,
+              f"{label}: launches {counts} != phase 4's {vgg_counts}")
+        row["launches"] = counts
+        # the float32 artifact restored and bound beside it; its plan's
+        # sidecars are the packed plan's, bit for bit
+        template = MODELS["vgg16"].init(torch.Generator(), reduced=False,
+                                        num_classes=1000, device="meta")
+        t0 = time.perf_counter()
+        fparams, _ = store.restore(d32, template, device=dev)
+        fplan = EG.bind(fparams, pol, tree="cnn", strict=True, device=dev)
+        sync()
+        row["f32_restore_bind_s"] = time.perf_counter() - t0
+        a, b = (_tree.flatten(p)[0] for p in (ten.plan.params, fplan.params))
+        check(len(a) == len(b) and all(torch.equal(u, v)
+                                       for u, v in zip(a, b)),
+              f"{label}: unpacked sidecars differ from the float32 "
+              f"artifact's bind")
+        del fparams, fplan, cparams, srv, ten
+        shutil.rmtree(d32)
+        print(f"path {label}: artifacts float32 {row['f32_bytes']} B, "
+              f"bfp_packed {row['packed_bytes']} B, ratio "
+              f"{row['ratio']:.4f} ({n_packed} packed leaves at "
+              f"{row['packed_leaf_ratio']:.4f} of their float32 bytes); 16 "
+              f"served logits torch.equal to phase 4's, launches equal to "
+              f"phase 4's {({k: v for k, v in counts.items() if v})}, "
+              f"sidecars torch.equal to the float32 artifact's bind",
+              flush=True)
+        print(f"time {label}: cold start restore {row['restore_s']:.4f} s, "
+              f"unpack + bind {row['unpack_bind_s']:.4f} s, first forward "
+              f"batch 8 {row['first_forward_s']:.4f} s (kernels already "
+              f"built in this process); float32 restore + bind "
+              f"{row['f32_restore_bind_s']:.4f} s; saves: float32 "
+              f"{row['save_f32_s']:.4f} s, packed {row['save_packed_s']:.4f}"
+              f" s  [{card}]", flush=True)
+
+        # -- full-width ResNet-50 from bfp_packed and bfp_packed_v2 --------
+        label = "packed_resnet50_full"
+        row = out[label] = {}
+        apply, imgs = r50["apply"], r50["images"]
+        want = {k: v * 2 for k, v in MODEL_LAUNCHES["resnet50_full"].items()}
+        srv = MultiTenantServer(device=dev)
+        d32 = os.path.join(tmp, "r50_f32")
+        store.save(d32, 0, r50["params"])
+        row["f32_bytes"] = dir_bytes(d32)
+        shutil.rmtree(d32)
+        for fmt in ("bfp_packed", "bfp_packed_v2"):
+            d = os.path.join(tmp, f"r50_{fmt}")
+            store.save(d, 0, r50["params"], format=fmt, policy=pol)
+            t0 = time.perf_counter()
+            ten = srv.add_tenant(fmt, "resnet50", checkpoint_dir=d,
+                                 policy=pol, reduced=False,
+                                 num_classes=1000, strict_backend=True,
+                                 slots=8)
+            sync()
+            secs = time.perf_counter() - t0
+            served, counts = serve16(srv, fmt, imgs)
+            got = {k: counts[k] for k in want}
+            check(got == want and sum(counts.values()) == sum(want.values()),
+                  f"{label} {fmt}: launches {counts} != {want}")
+            check(torch.equal(served, r50_served),
+                  f"{label} {fmt}: served logits differ from phase 8's "
+                  f"(max |diff| {diff(served, r50_served)})")
+            row[fmt] = {"bytes": dir_bytes(d), "cold_start_s": secs}
+            print(f"path {label} {fmt}: {row[fmt]['bytes']} B "
+                  f"({row[fmt]['bytes'] / row['f32_bytes']:.4f} of the "
+                  f"float32 artifact), cold start (restore + unpack + bind) "
+                  f"{secs:.4f} s, 16 served logits torch.equal to phase 8's, "
+                  f"launches as MODEL_LAUNCHES  [{card}]", flush=True)
+        shared = srv.add_tenant("shared", "resnet50", plan=ten.plan, slots=8)
+        check(shared.engine._fwd is ten.engine._fwd,
+              f"{label}: the plan= tenant does not share the forward")
+        served, counts = serve16(srv, "shared", imgs)
+        check(torch.equal(served, r50_served) and
+              counts == {**dict.fromkeys(counts, 0), **want},
+              f"{label}: the plan= tenant's logits or launches differ")
+        st = srv.stats()
+        check(st["total"]["completed"] == 48 and st["total"]["failed"] == 0
+              and all(v["completed"] == 16 for v in st["tenants"].values()),
+              f"{label}: stats {st}")
+        print(f"path {label}: a tenant on the bfp_packed_v2 tenant's plan "
+              f"shares its forward and serves the same logits; stats total "
+              f"{st['total']}", flush=True)
+
+        # -- faults in the packed ResNet-50 weights, on the kernels ---------
+        label = "faults_resnet50_full"
+        row = out[label] = {}
+        pk = pack_param_tree(r50["params"], pol)
+        x8, clean = imgs[:8].to(dev), r50_served[:8]
+        per_fwd = dict(MODEL_LAUNCHES["resnet50_full"])
+        nsr = {}
+        for target in ("exponent", "mantissa_msb", "mantissa_lsb"):
+            tree_f, n = inject_tree(pk, target, 1e-3, 0)
+            kplan = EG.bind(tree_f, pol, tree="cnn", strict=True, device=dev)
+            K.reset_launch_counts()
+            got = head_logits(kplan.jit_forward(apply)(x8)).cpu()
+            sync()
+            counts = K.launch_counts()
+            pplan = EG.bind(tree_f, pol.with_(backend="plain"), tree="cnn",
+                            strict=True, device=dev)
+            plain = head_logits(pplan.jit_forward(apply)(x8)).cpu()
+            check({k: counts[k] for k in per_fwd} == per_fwd,
+                  f"{label} {target}: launches {counts}")
+            check(same_bits(got, plain),
+                  f"{label} {target}: the kernels' faulty forward differs "
+                  f"from the plain versions' (max |diff| {diff(got, plain)})")
+            finite = bool(torch.isfinite(got).all())
+            snr = float(NSR.snr_db(clean, got)) if finite else float("-inf")
+            agree = float((got.argmax(-1) == clean.argmax(-1)).float()
+                          .mean())
+            nsr[target] = 10.0 ** (-snr / 10.0)
+            amax = got.abs().nan_to_num(0.0).max().item()
+            row[target] = {"n_flips": n, "top1_agree": agree, "snr_db": snr,
+                           "finite": finite, "max_abs_logit": amax,
+                           "nonfinite_logits": int((~torch.isfinite(got))
+                                                   .sum())}
+            print(f"faults {label} {target} ber=1e-3 seed=0: {n} flips, "
+                  f"top-1 agreement {agree:.4f}, logit SNR {snr:.4f} dB, "
+                  f"finite {finite}, max |logit| {amax:.6g} (clean "
+                  f"{clean.abs().max().item():.6g}); kernels == plain "
+                  f"versions (NaN-aware)  [{card}]", flush=True)
+        row["ordered"] = (nsr["exponent"] >= nsr["mantissa_msb"]
+                          >= nsr["mantissa_lsb"])
+        print(f"faults {label}: NSR exponent >= mantissa_msb >= "
+              f"mantissa_lsb holds at full width: {row['ordered']}",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- the endurance campaign, card against CPU ---------------------------
+    label = "campaign_small"
+    t0 = time.perf_counter()
+    rows = endurance_campaign(**CAMPAIGN, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_rows = endurance_campaign(**CAMPAIGN, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for r, c in zip(rows, cpu_rows):
+        same_snr = (r["snr_db"] == c["snr_db"] or
+                    abs(r["snr_db"] - c["snr_db"]) < 1e-3)
+        check(len(rows) == len(cpu_rows) == 24 and
+              r["n_flips"] == c["n_flips"] and
+              r["top1_agree"] == c["top1_agree"] and same_snr,
+              f"{label}: card row {r} != CPU row {c}")
+        print(f"campaign {r['model']} L={r['l']} {r['target']:<12} "
+              f"ber={r['ber']:g}: flips {r['n_flips']} top-1 "
+              f"{r['top1_agree']:.2f} SNR card {r['snr_db']:.4f} dB, CPU "
+              f"{c['snr_db']:.4f} dB", flush=True)
+    out[label] = {"rows": rows, "card_s": card_s, "cpu_s": cpu_s}
+    print(f"path {label}: {len(rows)} rows, card and CPU agree (flips, "
+          f"top-1, SNR within 1e-3 dB); card {card_s:.3f} s, CPU "
+          f"{cpu_s:.3f} s  [{card}]", flush=True)
+
+    # -- the serve CLI, as subprocesses on the card -------------------------
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"),
+                    os.environ.get("PYTHONPATH")) if p))
+    out["cli"] = []
+    for argv in CLI_RUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve_cnn", *argv]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        lines = run.stdout.strip().splitlines()
+        check(run.returncode == 0 and lines and
+              re.search(r"req/s", lines[-1]),
+              f"cli {' '.join(argv)}: rc {run.returncode}\n{run.stdout}"
+              f"\n{run.stderr[-3000:]}")
+        out["cli"].append({"argv": list(argv), "seconds": secs,
+                           "last_line": lines[-1]})
+        print(f"cli {' '.join(argv)}: rc 0 in {secs:.2f} s: {lines[-1]}  "
+              f"[{card}]", flush=True)
 
 
 def main() -> int:
@@ -1089,6 +1373,8 @@ def main() -> int:
     EG.register_backend("plain", plain_matmul, conv=plain_conv,
                         act_prequant=True, out_quant=True)
 
+    served_logits = {}      # each served path's 16 logits (phase 11)
+
     def serve(label, params, hw, per_forward, apply=vgg.apply):
         plan = EG.bind(params, pol, tree="cnn", strict=True)
         eng = CnnServeEngine(None, apply, plan, slots=8)
@@ -1109,6 +1395,7 @@ def main() -> int:
                 **{k: v * eng.ncalls for k, v in per_forward.items()}}
         check(counts == want, f"{label}: launches {counts} != {want}")
         served = torch.from_numpy(np.stack([r.logits for r in reqs]))
+        served_logits[label] = served
         check(served.shape == (16, 1000 if hw == 224 else 10)
               and bool(torch.isfinite(served).all()),
               f"{label}: logits not finite of the expected shape")
@@ -1883,7 +2170,12 @@ def main() -> int:
     table4_phase(dev, card, pol, full_params, images, r50_params,
                  models["resnet50_full"]["images"], gen, launches, detail)
 
-    # -- 11. results ---------------------------------------------------------
+    # -- 11. packed BFP artifacts end to end --------------------------------
+    packed_phase(dev, card, pol, detail, full_params, images,
+                 served_logits[full_p], launches[full_p],
+                 models["resnet50_full"], served_logits["resnet50_full"])
+
+    # -- 12. results ---------------------------------------------------------
     kernels = []
     for name in SOURCES:
         path = next(p for p in launches if launches[p][name] > 0)

@@ -14,17 +14,18 @@ view ``[kh*kw*C // bk, OC]`` (HWIO-major K, ``core.conv_utils``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Optional
 
 import torch
 
+from repro_torch import _tree
 from repro_torch.core import bfp
 from repro_torch.core.policy import BFPPolicy
 
 __all__ = ["quantize_cnn_param_tree", "prequant_leaf", "prequant_conv_leaf",
            "dequantize_prequant", "is_prequant", "prequant_act",
            "dequantize_act", "act_block", "cnn_rule_path",
-           "detect_tree_kind", "map_with_path"]
+           "detect_tree_kind"]
 
 
 def is_prequant(w: Any) -> bool:
@@ -44,21 +45,6 @@ def _resolve(policy: Any, path: Optional[str]) -> Optional[BFPPolicy]:
     # whose __init__ imports this module.
     from repro_torch.engine.policy_map import resolve_policy
     return resolve_policy(policy, path)
-
-
-def map_with_path(fn: Callable[[List[str], Any], Any], tree: Any,
-                  keys: Optional[List[str]] = None) -> Any:
-    """Rebuild a tree of dicts/lists/tuples with ``fn(keys, leaf)`` applied
-    to every leaf; ``keys`` are the string path segments (dict keys,
-    sequence indices), as ``repro`` derives them from pytree paths."""
-    keys = keys or []
-    if isinstance(tree, dict):
-        return {k: map_with_path(fn, v, keys + [str(k)])
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(map_with_path(fn, v, keys + [str(i)])
-                          for i, v in enumerate(tree))
-    return fn(keys, tree)
 
 
 def prequant_leaf(w: torch.Tensor, policy: BFPPolicy) -> Any:
@@ -165,7 +151,8 @@ def quantize_cnn_param_tree(params: Any, policy: Any) -> Any:
     if policy is None:
         return params
 
-    def one(keys, leaf):
+    def one(path, leaf):
+        keys = [str(k) for k in path]
         if not keys or keys[-1] != "w" or not isinstance(leaf, torch.Tensor):
             return leaf
         if not leaf.is_floating_point():
@@ -179,4 +166,4 @@ def quantize_cnn_param_tree(params: Any, policy: Any) -> Any:
             return prequant_leaf(leaf, pol)
         return leaf
 
-    return map_with_path(one, params)
+    return _tree.map_with_path(one, params)

@@ -32,18 +32,37 @@ from typing import Any, Dict, Iterable, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import _tree
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.bfp import Rounding, Scheme
+from repro_torch.core.packed import is_packed, unpack_prequant
 from repro_torch.core.policy import BFPPolicy
 from repro_torch.core.prequant import (cnn_rule_path, detect_tree_kind,
-                                       is_prequant, map_with_path,
-                                       quantize_cnn_param_tree)
+                                       is_prequant, quantize_cnn_param_tree)
 from repro_torch.engine import backends as BK
 from repro_torch.engine import taps as TAPS
 from repro_torch.engine.core import conv_and_tap, gemm_and_tap
 from repro_torch.engine.policy_map import PolicyLike, PolicyMap, resolve_policy
 
-__all__ = ["Site", "Plan", "bind", "params_to"]
+__all__ = ["Site", "Plan", "bind", "params_to", "unpack_packed"]
+
+
+def unpack_packed(params: Any, device: DeviceLike = "cuda") -> Any:
+    """Replace every :class:`~repro_torch.core.packed.PackedBFP` leaf with
+    its ``{"m", "s"}`` prequant sidecar on ``device`` — the packed-artifact
+    load path (a checkpoint restored with ``packed="keep"``): the
+    container unpacks straight into the wire format every backend
+    executes, so no float weight is ever materialized for a
+    prequant-eligible site.  Fixed- and variable-width containers decode
+    through the same call.  A tree without packed leaves passes through
+    untouched (the same object)."""
+    leaves, _ = _tree.flatten(params, is_leaf=is_packed)
+    if not any(is_packed(leaf) for leaf in leaves):
+        return params
+    dev = resolve_device(device)
+    return _tree.map_with_path(
+        lambda _, leaf: unpack_prequant(leaf, dev) if is_packed(leaf)
+        else leaf, params, is_leaf=is_packed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,7 +227,7 @@ class _ScopedPolicy:
 
 def params_to(params: Any, device: torch.device) -> Any:
     """The tree with every tensor leaf on ``device``."""
-    return map_with_path(
+    return _tree.map_with_path(
         lambda _, leaf: leaf.to(device) if isinstance(leaf, torch.Tensor)
         else leaf, params)
 
@@ -252,7 +271,9 @@ def bind(params: Any, policy: PolicyLike,
 
     Args:
       params: model param tree (``models.cnn`` conventions; an already
-        pre-quantized tree is fine — quantization is idempotent).
+        pre-quantized tree is fine — quantization is idempotent — and so
+        is one with :class:`~repro_torch.core.packed.PackedBFP` leaves,
+        unpacked here by :func:`unpack_packed`).
       policy: None / BFPPolicy / PolicyMap — resolved per site, once.
       model_paths: optional explicit site list — strings or (path, kind)
         pairs.  Restricts the discovered sites to these paths (and the
@@ -273,6 +294,9 @@ def bind(params: Any, policy: PolicyLike,
     """
     dev = resolve_device(device)
     _validate_policy_backends(policy)
+    # packed artifacts (checkpoint restore(packed="keep")) unpack straight
+    # into {"m", "s"} sidecars on the plan's device — never through float
+    params = unpack_packed(params, dev)
     kind = detect_tree_kind(params) if tree == "auto" else tree
     if kind != "cnn":
         raise ValueError(f"bind supports CNN trees (tree='cnn' or 'auto' on "

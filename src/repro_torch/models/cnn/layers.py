@@ -27,7 +27,10 @@ __all__ = ["conv2d_init", "conv2d", "dense_init", "dense", "batchnorm_init",
 def _he_init(gen: torch.Generator, shape, fan_in: int,
              device: torch.device) -> torch.Tensor:
     # drawn on the generator's device, so one seed gives the same weights
-    # wherever they are placed
+    # wherever they are placed; on the meta device (a shape-only template,
+    # as a cold start restores into) nothing is drawn
+    if device.type == "meta":
+        return torch.empty(shape, device=device)
     w = torch.randn(shape, generator=gen, device=gen.device)
     return (w * math.sqrt(2.0 / fan_in)).to(device)
 

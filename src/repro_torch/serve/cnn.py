@@ -223,7 +223,7 @@ class CnnServeEngine:
         fwd = self._float_fwds.get(degraded)
         if fwd is None:
             plan = self.fallback_plan if degraded else self.plan
-            tree = float_params(plan.params)
+            tree = float_params(plan.params, self.device)
             fn = self.apply_fn
 
             def fwd(x, _t=tree):

@@ -8,8 +8,8 @@
     DEGRADED -> (depth <= low watermark for ``recover_steps`` steps) ->
     PRIMARY, with hysteresis on both edges;
   * :func:`float_params` — the float-retry weight tree: prequant
-    ``{"m", "s"}`` sidecars dequantize to dense float32.  (Packed
-    containers dequantize here too once ``core.packed`` is ported.)
+    ``{"m", "s"}`` sidecars and packed containers dequantize to dense
+    float32.
 """
 from __future__ import annotations
 
@@ -18,6 +18,9 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch import _tree
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.core import packed as PK
 from repro_torch.core import prequant as PQ
 
 __all__ = ["ServeRejected", "QueueOverloaded", "DeadlineExceeded",
@@ -102,22 +105,27 @@ class DegradeController:
         return self.state
 
 
-def float_params(params: Any) -> Any:
+def float_params(params: Any, device: DeviceLike = "cuda") -> Any:
     """A serving param tree with every prequant sidecar (conv HWIO
-    mantissas with GEMM-view steps included) dequantized to dense
+    mantissas with GEMM-view steps included) and every
+    :class:`~repro_torch.core.packed.PackedBFP` leaf dequantized to dense
     float32 — the float reference of EXACTLY the weights the BFP path
     serves, which the non-finite-logits retry runs with ``policy=None``.
+    Sidecars dequantize where they live; containers (host bytes) on
+    ``device``, which is resolved only when the tree holds one.
     """
-    if PQ.is_prequant(params):
-        m, s = params["m"], params["s"]
-        if m.ndim == 4 and s.ndim == 2:          # conv HWIO mantissa
-            kh, kw, c, n = m.shape
-            d = PQ.dequantize_prequant({"m": m.reshape(kh * kw * c, n),
-                                        "s": s})
-            return d.reshape(kh, kw, c, n).to(torch.float32)
-        return PQ.dequantize_prequant(params)
-    if isinstance(params, dict):
-        return {k: float_params(v) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return type(params)(float_params(v) for v in params)
-    return params
+    def one(_, leaf):
+        if PK.is_packed(leaf):
+            return PK.unpack_dequant(leaf, resolve_device(device))
+        if PQ.is_prequant(leaf):
+            m, s = leaf["m"], leaf["s"]
+            if m.ndim == 4 and s.ndim == 2:      # conv HWIO mantissa
+                kh, kw, c, n = m.shape
+                d = PQ.dequantize_prequant({"m": m.reshape(kh * kw * c, n),
+                                            "s": s})
+                return d.reshape(kh, kw, c, n).to(torch.float32)
+            return PQ.dequantize_prequant(leaf)
+        return leaf
+
+    return _tree.map_with_path(
+        one, params, is_leaf=lambda x: PK.is_packed(x) or PQ.is_prequant(x))

@@ -14,6 +14,7 @@ from repro.core.policy import PALLAS_TILED as J_PALLAS_TILED
 from repro.core.policy import PAPER_DEFAULT as J_PAPER_DEFAULT
 from repro.core.policy import TPU_TILED as J_TPU_TILED
 from repro.engine import PolicyMap as JPolicyMap
+from repro_torch.convert import params_from_numpy
 from repro_torch.core import bfp
 from repro_torch.core import conv_utils as cu
 from repro_torch.core import prequant as pq
@@ -278,7 +279,7 @@ def test_quantize_cnn_param_tree_paths_and_leaves():
     ref = to_numpy_tree(jax.jit(
         lambda tr: jpq.quantize_cnn_param_tree(tr, jpm))(tree))
     got = pq.quantize_cnn_param_tree(
-        pq.map_with_path(lambda _, a: t(a), tree), pm)
+        params_from_numpy(tree, "cpu"), pm)
     assert pq.cnn_rule_path(tree, ["stem", "conv", "w"]) == \
         jpq.cnn_rule_path(tree, ["stem", "conv", "w"]) == "stem"
     assert pq.cnn_rule_path(tree, ["blocks", "0", "c1", "w"]) == "blocks/0/c1"

@@ -509,6 +509,41 @@ def test_served_vgg16_on_the_card_equals_the_cpu(cuda, bk):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["bfp_packed", "bfp_packed_v2"])
+def test_packed_artifact_served_on_the_card(cuda, tmp_path, fmt):
+    """A packed reduced-VGG16 artifact cold-started as a tenant on the
+    card: its containers unpack into sidecars on the card, the prequant
+    kernels serve them, and the logits equal the float tree bound on the
+    card and the same artifact served on the CPU."""
+    from repro_torch.checkpoint import store
+    from repro_torch.serve.tenants import MultiTenantServer
+    params = MODELS["vgg16"].init(torch.Generator().manual_seed(2),
+                                  device="cpu")
+    pol = PALLAS_TILED.with_(block_k=8, straight_through=False)
+    store.save(str(tmp_path), 0, params, format=fmt, policy=pol)
+    images = t(normal((3, 32, 32, 3), seed=6))
+    logits = {}
+    for dev in ("cpu", cuda):
+        srv = MultiTenantServer(device=dev)
+        ten = srv.add_tenant("v", "vgg16", checkpoint_dir=str(tmp_path),
+                             policy=pol, strict_backend=True, slots=4)
+        assert ten.plan.params["conv2_1"]["w"]["m"].device.type == \
+            torch.device(dev).type
+        K.reset_launch_counts()
+        reqs = [srv.submit("v", image=images[i]) for i in range(3)]
+        srv.run()
+        counts = K.launch_counts()
+        assert all(r.error is None for r in reqs)
+        logits[str(dev)] = torch.stack([torch.from_numpy(r.logits)
+                                        for r in reqs])
+    assert counts["bfp_conv2d_prequant"] == 12 and counts["bfp_conv2d"] == 1
+    plan = EG.bind(params, pol, tree="cnn", strict=True, device=cuda)
+    want = plan.jit_forward(vgg.apply)(images.to(cuda)).cpu()
+    assert torch.equal(logits["cuda"], want)
+    assert torch.equal(logits["cpu"], logits["cuda"])
+
+
+@pytest.mark.gpu
 def test_cuda_bfp_quantize_matches_plain_version(cuda):
     """The block-formatting kernel on ragged M and K, bk 8..512, bits
     4..12 (int8 saturation above 8), zero/inf/NaN blocks and half-way

@@ -71,3 +71,43 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     eng.run()
     assert req.logits.shape == (2,)
     assert eng.plan.params["fc"]["w"].device.type == "cpu"
+
+
+def test_packed_artifact_entry_points_need_cuda_unless_asked(monkeypatch,
+                                                            tmp_path):
+    """The modules of the packed-artifact path (checkpoint store, packed
+    containers, tenants, faults, the serve CLI) also default to the card
+    and raise without it."""
+    from repro_torch.checkpoint import store
+    from repro_torch.core import packed
+    from repro_torch.core.policy import TPU_TILED
+    from repro_torch.engine.plan import unpack_packed
+    from repro_torch.faults import endurance_campaign, run_point
+    from repro_torch.launch import serve_cnn
+    from repro_torch.serve.degrade import float_params
+    from repro_torch.serve.tenants import cold_start
+
+    assert {"checkpoint", "faults", "launch"} <= {
+        f.parent.name for f in _port_files()}
+    pol = TPU_TILED.with_(block_k=None)
+    params = MODELS["lenet"].init(torch.Generator().manual_seed(0),
+                                  device="cpu")
+    store.save(str(tmp_path), 0, params, format="bfp_packed", policy=pol)
+    pk = packed.pack_param_tree(params, pol)
+    leaf = pk["c1"]["w"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: store.restore(str(tmp_path), params),
+                 lambda: cold_start("lenet", str(tmp_path)),
+                 lambda: packed.unpack_prequant(leaf),
+                 lambda: packed.unpack_dequant(leaf),
+                 lambda: packed.unpack_block(leaf),
+                 lambda: unpack_packed(pk),
+                 lambda: float_params(pk),
+                 lambda: run_point("lenet", 8, "exponent", 1e-2, 0),
+                 lambda: endurance_campaign(),
+                 lambda: serve_cnn.main(["--model", "lenet"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # a tree without containers needs no device to pass through
+    assert float_params(params)["c1"]["w"] is params["c1"]["w"]
+    assert unpack_packed(params) is params
