@@ -144,7 +144,23 @@ raises (and so exits non-zero) when it fails:
    (SNR within 1e-3 dB); the serve CLI (``repro_torch.launch.serve_cnn``)
    as two subprocesses, ResNet-50 at full width and two tenants, each
    exiting 0 with its req/s line;
-12. a JSON line of per-kernel numbers, then the result line
+12. BFP training (``repro_torch.train.cnn``, both backward GEMMs of every
+   site on the ``bfp_matmul`` kernels): ``train_vgg16_full``, VGG16 at
+   published width from phase 4's float weights, 2 workers of 8 images,
+   ``PALLAS_TILED`` without straight-through, 8-bit wire; two steps, each
+   with launches as ``TRAIN_VGG16_LAUNCHES`` and its params, OptState and
+   residuals ``torch.equal`` to the same step through the plain versions,
+   step 1 repeated ``torch.equal``, the loss finite; one worker's
+   backward profiled (device ms by kernel family); peak memory; measured
+   gradient NSR of all 32 backward GEMMs within their bounds, in the
+   order a reduced VGG16 gives on the CPU.  ``train_cifarnet``:
+   ``train_cnn`` at ``repro``'s CIFARNet configuration (8 steps, the first
+   over the packed wire, NSR at step 0, a checkpoint): the loss falls,
+   the measured wire bytes equal ``wire_report``'s, the packed exchange
+   equals the in-graph step bit for bit, the checkpoint round trip is
+   ``torch.equal``, and step 1 on the card is within 1e-5 (loss,
+   relative) and ``2.5 * lr`` (params) of the same step on the CPU;
+13. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
@@ -285,6 +301,9 @@ Q_SHAPES = ((1000, 2047, 128, 8), (37, 300, 32, 4), (512, 4608, 512, 8),
             (2049, 1153, 128, 8), (64, 147, 32, 8), (300, 96, 512, 4),
             (1000, 4608, 32, 8), (64, 64, 128, 8), (40, 480, 48, 6),
             (2048, 1152, 512, 4))
+#: captures of a profiled loop before a capture short of kernel events
+#: fails the check (the profiler has been seen to drop one event)
+PROFILE_TRIES = 3
 #: every chain layer runs on the mma core: an f32-x layer after its
 #: activation (prequant) or patch (inline) format pass, a wire-x conv or
 #: matmul with float weights after its weight format pass, a layer with
@@ -391,7 +410,8 @@ def nan_bits(a):
 
 
 def same_bits(a, b) -> bool:
-    return all(torch.equal(u, v) for u, v in zip(nan_bits(a), nan_bits(b)))
+    a, b = nan_bits(a), nan_bits(b)
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 def diff(a, b) -> float:
@@ -430,6 +450,65 @@ R50_T4_LAUNCHES = {"bfp_conv2d": 53, "bfp_conv2d_pformat": 52,
 T4_FIELDS = ("input_ex", "input_single", "input_multi", "weight_ex",
              "weight_model", "output_ex", "output_single", "output_multi",
              "relu_ex")
+
+
+def register_plain_backend():
+    """Register backend "plain": the kernels' plain versions, taking the
+    activation wire format in and out as the kernels' backend does (phase
+    6).  Returns its (matmul, conv)."""
+    from repro_torch import engine as EG
+    from repro_torch.core.prequant import act_block, is_prequant
+    from repro_torch.kernels import bfp_conv as KC
+    from repro_torch.kernels import bfp_matmul as KM
+
+    def epilogue(out_policy):
+        return ((None, None) if out_policy is None
+                else (out_policy.l_i, out_policy.block_k))
+
+    def wire(out):
+        return {"m": out[0], "s": out[1]} if isinstance(out, tuple) else out
+
+    def plain_matmul(x2d, w, p, out_policy=None):
+        epi = epilogue(out_policy)
+        if is_prequant(x2d):
+            xb = act_block(x2d)
+            if is_prequant(w):
+                return wire(KM.bfp_matmul_xwprequant_plain(
+                    x2d["m"], x2d["s"], w["m"], w["s"], p.l_i, p.l_w, xb,
+                    *epi))
+            return wire(KM.bfp_matmul_xprequant_plain(
+                x2d["m"], x2d["s"], w, p.l_i, p.l_w, xb, *epi))
+        if is_prequant(w):
+            kb = w["m"].shape[0] // w["s"].shape[0]
+            return wire(KM.bfp_matmul_prequant_plain(
+                x2d, w["m"], w["s"], p.l_i, p.l_w, kb, *epi))
+        return wire(KM.bfp_matmul_plain(x2d, w, p.l_i, p.l_w, p.block_k,
+                                        *epi))
+
+    def plain_conv(x, w, p, stride, padding, out_policy=None):
+        epi = epilogue(out_policy)
+        if is_prequant(w):
+            kh, kw, c, _ = w["m"].shape
+            kb = kh * kw * c // w["s"].shape[0]
+        else:
+            kb = p.block_k
+        if is_prequant(x):
+            if is_prequant(w):
+                return wire(KC.bfp_conv2d_xwprequant_plain(
+                    x["m"], x["s"], w["m"], w["s"], p.l_i, p.l_w, kb,
+                    stride, padding, *epi))
+            return wire(KC.bfp_conv2d_xprequant_plain(
+                x["m"], x["s"], w, p.l_i, p.l_w, act_block(x), stride,
+                padding, *epi))
+        if is_prequant(w):
+            return wire(KC.bfp_conv2d_prequant_plain(
+                x, w["m"], w["s"], p.l_i, p.l_w, kb, stride, padding, *epi))
+        return wire(KC.bfp_conv2d_plain(x, w, p.l_i, p.l_w, kb, stride,
+                                        padding, *epi))
+
+    EG.register_backend("plain", plain_matmul, conv=plain_conv,
+                        act_prequant=True, out_quant=True)
+    return plain_matmul, plain_conv
 
 
 def table4_phase(dev, card, pol, vgg_params, vgg_images, r50_params,
@@ -811,6 +890,355 @@ def packed_phase(dev, card, pol, detail, vgg_params, vgg_images, vgg_served,
                            "last_line": lines[-1]})
         print(f"cli {' '.join(argv)}: rc 0 in {secs:.2f} s: {lines[-1]}  "
               f"[{card}]", flush=True)
+
+
+#: kernel launches per training step of ``train_vgg16_full`` (2 workers
+#: of 8 images, PALLAS_TILED at block 128, float weights): the forward
+#: runs 13 inline convs (each a patch format pass + the mma core; conv1_1
+#: pads K = 27 to a block) and 3 inline matmuls on the mma core per
+#: worker; the backward runs two ``bfp_matmul`` GEMMs per site (#dx, #dw)
+#: per worker at the fitted blocks (``grad.fit_grad_policy``): on the mma
+#: core (after a patch format pass) the 12 conv #dx with N' = 9C a
+#: multiple of 4, the 10 conv #dw over M = 8*H*W at block 128 (conv1-4)
+#: and fc6/fc7 #dx; on the tile kernel conv1_1's #dx (N' = 27), conv5's
+#: three #dw (M = 1568: block 112), fc8's #dx (K' = 1000: block 125) and
+#: the three fc #dw (K' = 8: block 8).  Per step: 6 + 48 mma, 16 tile
+TRAIN_VGG16_LAUNCHES = {"bfp_conv2d": 26, "bfp_conv2d_pformat": 26,
+                        "bfp_matmul": 70, "bfp_matmul_pformat": 54}
+TRAIN_VGG16_SPLIT = {"forward mma": 6, "backward mma": 48,
+                     "backward tile": 16}
+#: the kernels' families in a profile, by kernel name
+FAMILIES = (("mma core", "conv_mma_kernel"), ("format pass",
+                                              "xformat_kernel"),
+            ("patch format pass", "pformat_kernel"),
+            ("tile kernel", "bfp_tile_kernel"))
+
+
+def train_phase(dev, card, pol, detail, launches, vgg_params, gen):
+    """BFP training on the card: full-width VGG16 steps with every
+    backward GEMM on the kernels, and ``repro``'s CIFARNet trainer (see
+    the module docstring, phase 12).  ``vgg_params`` are VGG16's float
+    weights; their fc6 fixes the image size (K = (hw / 32)^2 * C)."""
+    import dataclasses
+    import math
+
+    from repro_torch import _tree
+    from repro_torch import engine as EG
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import store
+    from repro_torch.data.pipeline import image_batch
+    from repro_torch.grad import measure_gradient_nsr
+    from repro_torch.grad.nsr import BACKWARD_KINDS
+    from repro_torch.kernels import bfp_matmul as KM
+    from repro_torch.models.cnn import MODELS, vgg
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.train import cnn as TC
+
+    out = detail["train"] = {}
+    sync = torch.cuda.synchronize
+
+    def leaves(tree, device=None):
+        return tuple(v.to(device) if device else v
+                     for v in _tree.flatten(tree)[0])
+
+    def live(params):
+        """The params as fresh leaves that require grad."""
+        leaves, treedef = _tree.flatten(params)
+        leaves = [p.detach().requires_grad_() for p in leaves]
+        return _tree.unflatten(treedef, leaves), leaves
+
+    def grad_once(params, x, y, policy, nc, apply=vgg.apply):
+        tree, ps = live(params)
+        loss = TC.cnn_loss(tree, apply, x, y, policy, nc)
+        return torch.autograd.grad(loss, ps)
+
+    # -- train_vgg16_full: two steps at published width --------------------
+    label = "train_vgg16_full"
+    row = out[label] = {}
+    nc = vgg_params["fc8"]["w"].shape[1]
+    hw = 32 * math.isqrt(vgg_params["fc6"]["w"].shape[0]
+                         // vgg_params["conv5_3"]["w"].shape[3])
+    cfg = TC.CnnTrainConfig(model="vgg16", workers=2, batch=16,
+                            num_classes=nc, policy=pol, grad_bits=8)
+    pcfg = dataclasses.replace(cfg, policy=pol.with_(backend="plain"))
+    state0 = TC.CnnTrainState(
+        params=vgg_params, opt_state=opt.adamw_init(vgg_params),
+        residual=_tree.tree_map(lambda p: torch.zeros(
+            (cfg.workers, *p.shape), dtype=torch.float32, device=dev),
+            vgg_params),
+        step=torch.zeros((), dtype=torch.int32, device=dev))
+    x, y, _ = image_batch(gen, nc, cfg.batch, hw, 3, device=dev)
+    step, pstep = TC.make_cnn_train_step(cfg), TC.make_cnn_train_step(pcfg)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    state, row["steps"] = state0, []
+    for i in range(2):
+        K.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        new, m = step(state, (x, y))
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = K.launch_counts()
+        loss = float(m["loss"])
+        check(np.isfinite(loss) and np.isfinite(float(m["grad_norm"])),
+              f"{label}: step {i + 1} loss {loss}")
+        want = {**dict.fromkeys(counts, 0), **TRAIN_VGG16_LAUNCHES}
+        check(counts == want, f"{label}: step {i + 1} launches "
+              f"{ {k: v for k, v in counts.items() if v} } != "
+              f"{TRAIN_VGG16_LAUNCHES}")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        plain, pm = pstep(state, (x, y))
+        sync()
+        pwall = (time.perf_counter() - t0) * 1e3
+        check(not any(K.launch_counts().values()),
+              f"{label}: the plain-version step launched a kernel")
+        check(same_bits(leaves(new), leaves(plain))
+              and torch.equal(m["loss"], pm["loss"]),
+              f"{label}: step {i + 1} on the kernels != the plain-version "
+              f"step (params, OptState, residuals; max |diff| "
+              f"{diff(leaves(new), leaves(plain))})")
+        if i == 0:
+            launches[label] = counts
+            again, _ = step(state, (x, y))
+            check(same_bits(leaves(again), leaves(new)),
+                  f"{label}: step 1 repeated differs")
+        row["steps"].append({"loss": loss, "grad_norm": float(
+            m["grad_norm"]), "ms": wall, "plain_ms": pwall})
+        print(f"path {label} step {i + 1}: loss {loss:.6f} grad_norm "
+              f"{float(m['grad_norm']):.6f}, {wall:.1f} ms (plain versions "
+              f"{pwall:.1f} ms); params, OptState and residuals torch.equal "
+              f"to the plain-version step; launches "
+              f"{ {k: v for k, v in counts.items() if v} }  [{card}]",
+              flush=True)
+        del plain
+        state = new
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["launch_split"] = TRAIN_VGG16_SPLIT
+    rnorm = sum(float(torch.linalg.norm(r))
+                for r in _tree.flatten(state.residual)[0])
+    check(rnorm > 0, f"{label}: residuals are zero after two steps")
+    print(f"path {label}: step 1 repeated torch.equal; bfp_matmul per step "
+          f"{TRAIN_VGG16_LAUNCHES['bfp_matmul']} = {TRAIN_VGG16_SPLIT} "
+          f"(mma = the {TRAIN_VGG16_LAUNCHES['bfp_matmul_pformat']} calls "
+          f"with a patch format pass); peak memory "
+          f"{row['peak_mem_gb']:.2f} GB  [{card}]", flush=True)
+
+    # the backward of one worker's microbatch under the profiler: its wall
+    # time and device time by kernel family
+    x8, y8 = x[:8], y[:8]
+    tree, ps = live(state.params)
+    loss = TC.cnn_loss(tree, vgg.apply, x8, y8, pol, nc)
+    sync()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    caught = []       # the backward GEMMs' events: operands and policy
+    with torch.profiler.profile(activities=acts) as prof, EG.taps(
+            lambda ev: caught.append(ev) if ev.kind in BACKWARD_KINDS
+            else None):
+        t0 = time.perf_counter()
+        torch.autograd.grad(loss, ps)
+        sync()
+        bwd = (time.perf_counter() - t0) * 1e3
+    fam = dict.fromkeys([f for f, _ in FAMILIES] + ["other"], 0.0)
+    other = {}
+    for e in prof.key_averages():
+        # device events only: a host op's entry repeats its kernels' time
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            key = next((f for f, n in FAMILIES if n in e.key), "other")
+            fam[key] += e.self_device_time_total / 1e3
+            if key == "other":
+                name = e.key[:60]
+                other[name] = (other.get(name, 0.0)
+                               + e.self_device_time_total / 1e3)
+    devt = sum(fam.values())
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
+    row["backward"] = {"wall_ms": bwd, "device_ms": devt, **fam,
+                       "other_top": top}
+    del tree, ps, loss
+    # each backward GEMM of that run alone, on contiguous copies of its
+    # operands (CUDA events), beside its bound, by core
+    gemms = row["backward_gemms"] = {}
+    for ev in caught:
+        a, b = ev.x.contiguous(), ev.w.contiguous()
+        gbk = ev.policy.block_k
+        (m, k), n = a.shape, b.shape[1]
+        core = KM.matmul_core(False, gbk, k, n, 8, 8)
+        gms = cuda_ms(lambda: KM.bfp_matmul(a, b, l_i=8, l_w=8, bk=gbk),
+                      reps=3)
+        bms, by = bound(a, (b,), ev.y, m, n, k)
+        gemms[ev.path] = {"core": core, "M,N,K": [m, n, k], "block": gbk,
+                          "ms": gms, "bound_ms": bms, "bound_by": by}
+    by_core = {c: [sum(r[f] for r in gemms.values() if r["core"] == c)
+                   for f in ("ms", "bound_ms")] for c in ("mma", "tile")}
+    slow = sorted(gemms.items(), key=lambda kv: -kv[1]["ms"])[:4]
+    del caught
+    print(f"time {label} backward GEMMs (one worker): "
+          + "; ".join(f"{c} {sum(r['core'] == c for r in gemms.values())} "
+                      f"GEMMs {v[0]:.3f} ms (bound {v[1]:.4f})"
+                      for c, v in by_core.items())
+          + "; slowest " + ", ".join(
+              f"{p} {r['core']} M,N,K={r['M,N,K']} bk {r['block']} "
+              f"{r['ms']:.3f} ms (bound {r['bound_ms']:.4f})"
+              for p, r in slow) + f"  [{card}]", flush=True)
+    print(f"profile {label} backward (one worker, 8 images): wall "
+          f"{bwd:.1f} ms, device {devt:.1f} ms "
+          f"({'busy %.1f%%' % (100 * devt / bwd) if devt else 'not measured: no device events'}); "
+          f"device ms by family "
+          f"{json.dumps({k: round(v, 3) for k, v in fam.items()})}; "
+          f"top other kernels (ms) "
+          f"{json.dumps({k: round(v, 3) for k, v in top.items()})}  "
+          f"[{card}]", flush=True)
+
+    # measured gradient NSR against the bound, at full width (global
+    # batch), paths and order as a reduced VGG16's on the CPU
+    t0 = time.perf_counter()
+    recs = measure_gradient_nsr(lambda: grad_once(state.params, x, y, pol,
+                                                  nc))
+    sync()
+    nsr_s = time.perf_counter() - t0
+    red = MODELS["vgg16"].init(torch.Generator().manual_seed(0),
+                               reduced=True, device="cpu")
+    cpu = measure_gradient_nsr(lambda: grad_once(
+        red, torch.randn(2, 32, 32, 3, generator=gen), torch.tensor([1, 7]),
+        pol, 10))
+    order = [(r.path, r.kind) for r in recs]
+    check(order == [(r.path, r.kind) for r in cpu] and len(order) == 32
+          and order[-2:] == [("conv1_1#dx", "conv_dx"),
+                             ("conv1_1#dw", "conv_dw")],
+          f"{label}: gradient NSR records {order} differ from the CPU's")
+    check(all(r.policy is not None and r.backend == "pallas"
+              and r.within_bound for r in recs),
+          f"{label}: a backward GEMM over its NSR bound or off the kernels: "
+          f"{[(r.path, r.eta_measured, r.eta_bound) for r in recs if not r.within_bound]}")
+    worst = max(recs, key=lambda r: r.eta_measured / r.eta_bound)
+    row["nsr"] = {"records": len(recs), "seconds": nsr_s,
+                  "worst": [worst.path, worst.eta_measured, worst.eta_bound],
+                  "eta": {r.path: [r.eta_measured, r.eta_bound,
+                                   r.policy.block_k] for r in recs}}
+    print(f"nsr {label}: {len(recs)} backward GEMMs on the kernels, each "
+          f"eta_measured <= eta_bound, in the CPU's order; worst "
+          f"{worst.path} {worst.eta_measured:.3e} <= {worst.eta_bound:.3e}; "
+          f"{nsr_s:.2f} s  [{card}]", flush=True)
+    del state, state0, x, y
+
+    # -- train_cifarnet: repro's trainer configuration ----------------------
+    label = "train_cifarnet"
+    row = out[label] = {}
+    ccfg = TC.CnnTrainConfig(model="cifarnet", workers=2, batch=64,
+                             policy=pol, grad_bits=8)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        K.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        res = TC.train_cnn(ccfg, steps=8, packed_wire_steps=1,
+                           measure_nsr_every=8,
+                           ckpt_dir=os.path.join(tmp, "ck"), device=dev)
+        sync()
+        row["train_s"] = time.perf_counter() - t0
+        launches[label] = K.launch_counts()
+        losses = [h["loss"] for h in res["history"]]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{label}: the loss did not fall: {losses}")
+        wire = res["wire_bytes"]
+        check(wire["measured_bytes"] == wire["per_step_bytes"]
+              * wire["packed_steps"] > 0,
+              f"{label}: measured wire bytes {wire} != wire_report's")
+        recs = res["nsr_records"]
+        check(len(recs) == 10 and all(r.within_bound for r in recs),
+              f"{label}: NSR records {[(r.path, r.eta_measured, r.eta_bound) for r in recs]}")
+        st = res["state"]
+        d2 = os.path.join(tmp, "ck2")
+        store.save(d2, int(st.step), st)
+        back, bstep = store.restore(d2, st, device=dev)
+        check(bstep == 8 and isinstance(back, TC.CnnTrainState)
+              and same_bits(leaves(back), leaves(st)),
+              f"{label}: the checkpoint round trip differs")
+        s0 = TC.init_state(ccfg, device=dev)
+        xb, yb, _ = TC.data_batch(ccfg, 0, device=dev)
+        sw, mw = TC.packed_exchange_step(ccfg, s0, (xb, yb))
+        sm, mm = TC.make_cnn_train_step(ccfg)(s0, (xb, yb))
+        check(same_bits(leaves(sw), leaves(sm))
+              and torch.equal(mw["loss"], mm["loss"])
+              and mw["wire_bytes"] == wire["per_step_bytes"],
+              f"{label}: the packed exchange differs from the in-graph "
+              f"step (max |diff| {diff(leaves(sw), leaves(sm))})")
+        # step 1 on the kernels against the same step on the plain
+        # versions, on the card: bit for bit
+        pccfg = dataclasses.replace(ccfg, policy=pol.with_(backend="plain"))
+        K.reset_launch_counts()
+        sp, mp = TC.make_cnn_train_step(pccfg)(s0, (xb, yb))
+        check(not any(K.launch_counts().values()),
+              f"{label}: the plain-version step launched a kernel")
+        check(same_bits(leaves(sm), leaves(sp))
+              and torch.equal(mm["loss"], mp["loss"]),
+              f"{label}: step 1 on the kernels != the plain-version step "
+              f"(params, OptState, residuals; max |diff| "
+              f"{diff(leaves(sm), leaves(sp))})")
+        # and against the same step on the CPU, by the CPU parity test's
+        # rule (tests/test_torch_train_cnn.py): float reductions (the
+        # log-softmax, col2im, the bias sums) order differently there
+        s0c = TC.init_state(ccfg, device="cpu")
+        xc, yc, _ = TC.data_batch(ccfg, 0, device="cpu")
+        t0 = time.perf_counter()
+        sc, mc = TC.make_cnn_train_step(ccfg)(s0c, (xc, yc))
+        cpu_s = time.perf_counter() - t0
+        check(same_bits(leaves(s0c), leaves(s0, "cpu"))
+              and torch.equal(xc, xb.cpu()),
+              f"{label}: the CPU's initial state or batch differs")
+        dloss = abs(float(mc["loss"]) - float(mm["loss"]))
+        dnorm = abs(float(mc["grad_norm"]) - float(mm["grad_norm"]))
+        check(dloss <= 1e-5 * abs(float(mc["loss"]))
+              and dnorm <= 1e-4 * float(mc["grad_norm"]),
+              f"{label}: step 1 on the card vs the CPU: loss diff {dloss}, "
+              f"grad_norm diff {dnorm}")
+        # the gradients before AdamW (whose first update is about
+        # lr * sign(g) and hides their size): one worker's microbatch
+        w = ccfg.batch // ccfg.workers
+        apply = MODELS["cifarnet"].apply
+        gd = grad_once(s0.params, xb[:w], yb[:w], pol, ccfg.num_classes,
+                       apply)
+        gc = grad_once(s0c.params, xc[:w], yc[:w], pol, ccfg.num_classes,
+                       apply)
+        far = {"params": [], "grads": []}
+        for what, pairs in (("params", zip(leaves(sm.params, "cpu"),
+                                           leaves(sc.params))),
+                            ("grads", zip((g.cpu() for g in gd), gc))):
+            for u, v in pairs:
+                d = (u - v).abs()
+                far[what].append(float((d > 1e-5 * v.abs() + 1e-5 * float(
+                    v.abs().max())).float().mean()))
+        dparam = diff(leaves(sm.params, "cpu"), leaves(sc.params))
+        check(max(far["params"] + far["grads"]) <= 0.01
+              and dparam <= 2.5 * ccfg.lr,
+              f"{label}: step 1 on the card vs the CPU: share of elements "
+              f"off by more than 1e-5 relative + 1e-5 of the largest "
+              f"{far}, params max |diff| {dparam}")
+        row.update({"losses": losses, "accuracy": res["accuracy"],
+                    "wire": wire, "nsr_records": len(recs),
+                    "cpu_step_s": cpu_s, "card_vs_cpu_loss": dloss,
+                    "card_vs_cpu_grad_norm": dnorm,
+                    "card_vs_cpu_params": dparam,
+                    "card_vs_cpu_far_share": {k: max(v) for k, v in
+                                              far.items()}})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"path {label}: 8 steps in {row['train_s']:.2f} s, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, accuracy "
+          f"{res['accuracy']:.3f}; 1 packed step of "
+          f"{wire['measured_bytes']} B = wire_report's (ratio "
+          f"{wire['ratio']:.4f}), packed == in-graph bit for bit; "
+          f"{len(recs)} NSR records within bound; checkpoint round trip "
+          f"torch.equal; step 1 torch.equal to the plain-version step; "
+          f"vs the CPU: loss {dloss:.2e}, grad_norm {dnorm:.2e}, params "
+          f"{dparam:.2e}, share off by > 1e-5 "
+          f"{ {k: max(v) for k, v in far.items()} } (CPU step "
+          f"{cpu_s:.2f} s); launches "
+          f"{ {k: v for k, v in launches[label].items() if v} }  "
+          f"[{card}]", flush=True)
 
 
 def main() -> int:
@@ -1323,55 +1751,7 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0.0), err)
 
     # -- 4. the main path: serve full-width VGG16 ---------------------------
-    # A backend of the plain versions, taking the activation wire format
-    # in and out as the kernels' backend does (phase 6).
-    def epilogue(out_policy):
-        return ((None, None) if out_policy is None
-                else (out_policy.l_i, out_policy.block_k))
-
-    def wire(out):
-        return {"m": out[0], "s": out[1]} if isinstance(out, tuple) else out
-
-    def plain_matmul(x2d, w, p, out_policy=None):
-        epi = epilogue(out_policy)
-        if is_prequant(x2d):
-            xb = act_block(x2d)
-            if is_prequant(w):
-                return wire(KM.bfp_matmul_xwprequant_plain(
-                    x2d["m"], x2d["s"], w["m"], w["s"], p.l_i, p.l_w, xb,
-                    *epi))
-            return wire(KM.bfp_matmul_xprequant_plain(
-                x2d["m"], x2d["s"], w, p.l_i, p.l_w, xb, *epi))
-        if is_prequant(w):
-            kb = w["m"].shape[0] // w["s"].shape[0]
-            return wire(KM.bfp_matmul_prequant_plain(
-                x2d, w["m"], w["s"], p.l_i, p.l_w, kb, *epi))
-        return wire(KM.bfp_matmul_plain(x2d, w, p.l_i, p.l_w, p.block_k,
-                                        *epi))
-
-    def plain_conv(x, w, p, stride, padding, out_policy=None):
-        epi = epilogue(out_policy)
-        if is_prequant(w):
-            kh, kw, c, _ = w["m"].shape
-            kb = kh * kw * c // w["s"].shape[0]
-        else:
-            kb = p.block_k
-        if is_prequant(x):
-            if is_prequant(w):
-                return wire(KC.bfp_conv2d_xwprequant_plain(
-                    x["m"], x["s"], w["m"], w["s"], p.l_i, p.l_w, kb,
-                    stride, padding, *epi))
-            return wire(KC.bfp_conv2d_xprequant_plain(
-                x["m"], x["s"], w, p.l_i, p.l_w, act_block(x), stride,
-                padding, *epi))
-        if is_prequant(w):
-            return wire(KC.bfp_conv2d_prequant_plain(
-                x, w["m"], w["s"], p.l_i, p.l_w, kb, stride, padding, *epi))
-        return wire(KC.bfp_conv2d_plain(x, w, p.l_i, p.l_w, kb, stride,
-                                        padding, *epi))
-
-    EG.register_backend("plain", plain_matmul, conv=plain_conv,
-                        act_prequant=True, out_quant=True)
+    plain_matmul, plain_conv = register_plain_backend()
 
     served_logits = {}      # each served path's 16 logits (phase 11)
 
@@ -1608,7 +1988,9 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    # device events only: a host op's entry repeats its kernels' time
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
                       reverse=True)[:8]
     detail["profile"] = {
@@ -1935,16 +2317,22 @@ def main() -> int:
 
     def device_us(xs, reps=5):
         """Median device time (us) of each call, over ``reps`` loops: the
-        loops must launch one kernel a call and nothing else."""
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for x in xs:
-                    ops.bfp_quantize(x, 8, bk)
-            torch.cuda.synchronize()
-        ev = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+        loops must launch one kernel a call and nothing else.  The
+        profiler has been seen to drop one kernel event of 225: a capture
+        short of events is taken again, up to ``PROFILE_TRIES`` times,
+        and still fails the check if it never comes back whole."""
+        for _ in range(PROFILE_TRIES):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    for x in xs:
+                        ops.bfp_quantize(x, 8, bk)
+                torch.cuda.synchronize()
+            ev = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+            if len(ev) == reps * len(xs):
+                break
         check(len(ev) == reps * len(xs)
               and all("bfp_quantize" in e.name for e in ev),
               f"{fmt_p}: {len(ev)} device events for {reps * len(xs)} "
@@ -2065,8 +2453,9 @@ def main() -> int:
     fam = {"mma core": 0.0, "format pass": 0.0, "patch format pass": 0.0,
            "tile kernel": 0.0, "other": 0.0}
     for e in prof.key_averages():
-        if e.self_device_time_total <= 0:
-            continue
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.self_device_time_total <= 0):
+            continue        # device events only (host ops repeat them)
         key = ("mma core" if "conv_mma_kernel" in e.key else
                "format pass" if "xformat_kernel" in e.key else
                "patch format pass" if "pformat_kernel" in e.key else
@@ -2175,7 +2564,10 @@ def main() -> int:
                  served_logits[full_p], launches[full_p],
                  models["resnet50_full"], served_logits["resnet50_full"])
 
-    # -- 12. results ---------------------------------------------------------
+    # -- 12. BFP training ----------------------------------------------------
+    train_phase(dev, card, pol, detail, launches, full_params, gen)
+
+    # -- 13. results ---------------------------------------------------------
     kernels = []
     for name in SOURCES:
         path = next(p for p in launches if launches[p][name] > 0)

@@ -31,8 +31,9 @@ explicit uniform-noise tensor in x's element order (``noise=``) where
 Gradients: ``bfp_matmul_2d`` with ``policy.straight_through`` is the
 legacy straight-through estimator (a ``torch.autograd.Function``):
 gradients as if the GEMM were float over the dequantized operands.  The
-engine's own custom gradients (``repro.grad``) arrive with the training
-slice.
+engine routes a call whose operands require grad through
+``repro_torch.grad`` instead, whose float backward over the same
+dequantized operands gives these gradients.
 """
 from __future__ import annotations
 

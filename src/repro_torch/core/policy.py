@@ -26,8 +26,9 @@ class BFPPolicy:
       rounding: ROUND (paper's choice), TRUNCATE, or STOCHASTIC.
       exp_bits: stored exponent width (storage accounting only).
       quantize_weights / quantize_inputs: per-operand enable switches.
-      straight_through: gradient estimator flag, kept so policies written
-        by ``repro`` load unchanged (no gradients in this port yet).
+      straight_through: gradient estimator: True (the default) gives a
+        float backward over the dequantized operands, False quantizes the
+        backward GEMMs under this policy (``repro_torch.grad``).
       backend: execution backend name; None selects via ``use_kernel``.
         ``"pallas"`` names the fused kernel backend, which the port runs
         as its CUDA kernels (also registered as ``"cuda"``).

@@ -1,0 +1,2 @@
+"""Deterministic synthetic data of the port (counterpart of
+``repro.data``)."""

@@ -1,0 +1,254 @@
+"""BFP gradient compression with error feedback (counterpart of
+``repro.dist.compress``).
+
+The paper's off-chip-traffic argument applied to the training
+interconnect: gradients are block-formatted before the all-reduce,
+cutting wire bytes ~4x at 8 bits.  Error feedback (Seide et al. 2014;
+Karimireddy et al. 2019) carries the residual of each quantization and
+adds it back before the next one, so the compressed sum converges to the
+true sum.
+
+Two faces of one wire format, pinned bit-exact against each other:
+
+  * :func:`quantize_leaf`: the in-graph MODEL of the wire (a round trip
+    through the BFP format in tensor ops), used inside the training step
+    via :func:`make_compressor`;
+  * :func:`pack_leaf` / :func:`unpack_leaf`: the ACTUAL bytes, a
+    bit-packed :class:`~repro_torch.core.packed.PackedBFP` container
+    (one int8 exponent per block, mantissas at exactly ``bits`` wide),
+    whose dequantized round trip equals ``quantize_leaf`` exactly and
+    whose bytes equal ``repro``'s for the same leaf.
+
+Byte accounting is honest: the last block of a leaf is zero-padded to
+``block`` elements, and those padding bits travel.  :func:`packed_allreduce`
+exchanges over logical workers in one process, as ``repro``'s does.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import _tree
+from repro_torch._device import DeviceLike
+from repro_torch.core import bfp
+from repro_torch.core import packed as PK
+
+__all__ = ["quantize_leaf", "make_compressor", "pack_leaf", "unpack_leaf",
+           "leaf_wire_bytes", "wire_report", "validate_wire_block",
+           "packed_allreduce", "WIRE_BLOCK"]
+
+#: Elements per shared exponent on the wire (one int8 exponent per block;
+#: 512 matches the paper's Table-1 storage sweet spot: +8/512 bits/elem).
+WIRE_BLOCK = 512
+
+
+def validate_wire_block(block: int, tile_k: Optional[int] = None) -> None:
+    """Reject unusable wire-block geometry up front: ``block`` must be a
+    positive int and, when ``tile_k`` (a ``Scheme.TILED`` K-tile the
+    execution datapath blocks on) is given, a multiple of it, so wire
+    blocks land on tile boundaries."""
+    if not isinstance(block, int) or isinstance(block, bool) or block < 1:
+        raise ValueError(f"wire block must be a positive int, got {block!r}")
+    if tile_k is not None:
+        if not isinstance(tile_k, int) or isinstance(tile_k, bool) \
+                or tile_k < 1:
+            raise ValueError(f"tile_k must be a positive int, got {tile_k!r}")
+        if block % tile_k:
+            raise ValueError(
+                f"wire block {block} is not a multiple of the TILED "
+                f"tile_k {tile_k} — wire blocks would straddle execution "
+                f"tiles and mix exponent groups")
+
+
+def _is_float(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
+
+
+def _blocks(g: torch.Tensor, bits: int, block: int) -> bfp.BFPBlock:
+    """The leaf flattened, zero-padded to whole ``block``-element blocks
+    and block-formatted at ``bits``: [n_blocks, block]."""
+    flat = g.reshape(-1).float()
+    nb = -(-flat.numel() // block)
+    padded = F.pad(flat, (0, nb * block - flat.numel())).reshape(nb, block)
+    return bfp.quantize(padded, bits, (1,))
+
+
+def quantize_leaf(g: torch.Tensor, bits: int, block: int = WIRE_BLOCK,
+                  tile_k: Optional[int] = None) -> torch.Tensor:
+    """Round-trip one leaf through the BFP wire format (same shape out):
+    exactly the error :func:`pack_leaf`'s container introduces."""
+    validate_wire_block(block, tile_k)
+    if not g.is_floating_point():
+        return g
+    q = _blocks(g, bits, block).dequantize()
+    return q.reshape(-1)[:g.numel()].reshape(g.shape).to(g.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The actual wire bytes
+# ---------------------------------------------------------------------------
+
+def pack_leaf(g: Any, bits: int, block: int = WIRE_BLOCK,
+              tile_k: Optional[int] = None,
+              variable: bool = False) -> PK.PackedBFP:
+    """Block-format one leaf (a tensor or numpy array) and serialize the
+    real wire payload: header + one int8 exponent per block + mantissas
+    bit-packed at ``bits``, the remainder block's padding included.
+    ``unpack_leaf(pack_leaf(g, ...))`` equals ``quantize_leaf(g, ...)``
+    bit for bit.  ``variable=True`` writes a v3 variable-width container
+    (same dequantized round trip, fewer bytes for under-occupied
+    blocks)."""
+    validate_wire_block(block, tile_k)
+    t = g if isinstance(g, torch.Tensor) else torch.from_numpy(
+        np.asarray(g))
+    if not t.is_floating_point():
+        raise ValueError(f"pack_leaf needs a float leaf, got {t.dtype}")
+    return PK.pack_block(_blocks(t, bits, block), variable=variable,
+                         kind="wire", orig_shape=list(t.shape),
+                         orig_size=t.numel(), block=block)
+
+
+def unpack_leaf(p, device: DeviceLike = "cuda") -> torch.Tensor:
+    """Wire container (a :class:`PackedBFP` or its serialized bytes) ->
+    the dequantized float32 leaf in its original shape on ``device``.
+    The container's CRC32 is verified first: a corrupted wire block
+    raises :class:`repro_torch.core.packed.IntegrityError`."""
+    if isinstance(p, (bytes, bytearray, memoryview)):
+        p = PK.PackedBFP.from_bytes(p)        # verifies CRC (v2 wire)
+    else:
+        p.verify()
+    if p.meta.get("kind") != "wire":
+        raise ValueError(f"not a wire container (kind="
+                         f"{p.meta.get('kind')!r})")
+    deq = PK.unpack_block(p, device).dequantize()
+    n = int(p.meta["orig_size"])
+    return deq.reshape(-1)[:n].reshape(tuple(p.meta["orig_shape"]))
+
+
+def leaf_wire_bytes(n_elems: int, bits: int, block: int = WIRE_BLOCK) -> int:
+    """Analytic wire bytes for an ``n_elems`` leaf, padding included:
+    ``ceil(n/block)`` blocks of ``block`` mantissas plus one int8 exponent
+    each (container header excluded)."""
+    validate_wire_block(block)
+    nb = -(-n_elems // block)
+    return -(-nb * block * bits // 8) + nb
+
+
+def _nbytes(leaf: Any) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return np.asarray(leaf).nbytes
+
+
+def wire_report(tree: Any, bits: int, block: int = WIRE_BLOCK,
+                tile_k: Optional[int] = None,
+                variable: bool = False) -> Dict[str, Any]:
+    """Measure real wire bytes for a gradient/param tree: every float leaf
+    packed through :func:`pack_leaf` (serialized container sizes), every
+    other leaf counted at its raw bytes.  Returns ``{"wire_bytes",
+    "float_bytes", "ratio", "n_leaves", "n_uncompressed", "per_leaf":
+    [(shape, wire, raw), ...]}``."""
+    validate_wire_block(block, tile_k)
+    wire = raw = 0
+    per_leaf = []
+    n_unc = 0
+    leaves = _tree.flatten(tree)[0]
+    for leaf in leaves:
+        nraw = _nbytes(leaf)
+        if _is_float(leaf) or (isinstance(leaf, np.ndarray)
+                               and np.issubdtype(leaf.dtype, np.floating)):
+            w = pack_leaf(leaf, bits, block, tile_k, variable).nbytes
+        else:
+            w = nraw
+            n_unc += 1
+        wire += w
+        raw += nraw
+        per_leaf.append((tuple(np.shape(leaf)), w, nraw))
+    return {"wire_bytes": wire, "float_bytes": raw,
+            "ratio": wire / raw if raw else 0.0, "n_leaves": len(leaves),
+            "n_uncompressed": n_unc, "per_leaf": per_leaf}
+
+
+def _pairwise(one, grads: Any, residual: Any) -> Tuple[Any, Any]:
+    """``one(g, r) -> (q, r')`` over matching leaves, as two trees."""
+    leaves, treedef = _tree.flatten(grads)
+    res = _tree.flatten(residual)[0]
+    if len(res) != len(leaves):
+        raise ValueError(f"grads have {len(leaves)} leaves, residual "
+                         f"{len(res)}")
+    pairs = [one(g, r) for g, r in zip(leaves, res)]
+    return (_tree.unflatten(treedef, [p[0] for p in pairs]),
+            _tree.unflatten(treedef, [p[1] for p in pairs]))
+
+
+def packed_allreduce(grads: Any, residual: Any, bits: int = 8,
+                     block: int = WIRE_BLOCK,
+                     tile_k: Optional[int] = None,
+                     variable: bool = False) -> Tuple[Any, Any, int]:
+    """Error-feedback all-reduce over the real packed wire, over logical
+    workers in this process (as ``repro``'s).
+
+    ``grads`` / ``residual`` are trees whose float leaves are stacked per
+    worker ``[W, ...]`` (the data-parallel trainer's layout,
+    ``repro_torch.train.cnn``).  Per worker and leaf the error-feedback
+    input ``e = g + r`` is serialized with :func:`pack_leaf`, its bytes
+    cross the "wire" (``to_bytes`` -> CRC-verified :func:`unpack_leaf`),
+    and the dequantized contributions are averaged.  Returns
+    ``(mean_grads, new_residual, wire_bytes)``, ``wire_bytes`` the
+    serialized byte total over workers and leaves.  Bit-exact to
+    :func:`make_compressor`'s in-graph model (same residual carry, same
+    mean).  Non-float leaves pass through unaveraged.
+    """
+    validate_wire_block(block, tile_k)
+    n_bytes = 0
+
+    def one(g, r):
+        nonlocal n_bytes
+        if not _is_float(g):
+            return g, r
+        qs, rs = [], []
+        for wi in range(g.shape[0]):
+            e = g[wi].float() + r[wi]
+            wire = pack_leaf(e, bits, block, tile_k, variable).to_bytes()
+            n_bytes += len(wire)
+            q = unpack_leaf(wire, e.device)
+            qs.append(q)
+            rs.append(e - q)
+        return torch.mean(torch.stack(qs), dim=0), torch.stack(rs)
+
+    mean, res = _pairwise(one, grads, residual)
+    return mean, res, n_bytes
+
+
+def make_compressor(bits: int = 8, block: int = WIRE_BLOCK,
+                    tile_k: Optional[int] = None
+                    ) -> Tuple[Callable[[Any], Any],
+                               Callable[[Any, Any], Tuple[Any, Any]]]:
+    """Error-feedback BFP compressor for gradient trees.
+
+    Returns ``(init_fn, transform)``: ``init_fn(params)`` the zero
+    residual tree, ``transform(grads, residual) -> (compressed_grads,
+    new_residual)`` with ``e = g + r;  q = Q(e);  r' = e - q`` per leaf.
+    ``block`` geometry is validated here, once.
+    """
+    validate_wire_block(block, tile_k)
+
+    def init_fn(params: Any) -> Any:
+        return _tree.tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params)
+
+    def transform(grads: Any, residual: Any) -> Tuple[Any, Any]:
+        def one(g, r):
+            if not _is_float(g):
+                return g, r
+            e = g.float() + r
+            q = quantize_leaf(e, bits, block)
+            return q.to(g.dtype), e - q
+
+        return _pairwise(one, grads, residual)
+
+    return init_fn, transform

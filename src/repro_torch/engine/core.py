@@ -27,13 +27,18 @@ that format goes straight to an ``act_prequant`` backend, and is
 dequantized first for every other route (bit-identical by quantization
 idempotence).
 
-Gradients.  The kernel backend ("cuda", alias "pallas") has no backward
-yet: its plain version's round has zero derivative and the CUDA launch
-writes fresh outputs, so a float operand that requires grad would get a
-silent zero gradient.  Such a call raises
-:class:`~repro_torch.engine.backends.BackendUnsupportedError` instead
-(``repro`` routes it through ``repro.grad``'s custom VJP, not ported
-yet).  The emulated backend's straight-through gradients are unchanged.
+Gradients.  A call whose dense float operands require grad takes the
+autograd route of ``repro_torch.grad`` (where ``repro`` routes it
+through ``repro.grad``'s custom VJP): the same forward, and both
+backward GEMMs through the backend registry under the grad-path
+policies, on the kernels for the cuda backend.  The calls that route
+cannot take (``noise=``, ``out_policy=``, a wire-format x) have no
+backward on the kernel backend, whose plain version's round has zero
+derivative and whose CUDA launch writes fresh outputs; a float operand
+that requires grad there raises
+:class:`~repro_torch.engine.backends.BackendUnsupportedError` instead of
+getting a silent zero gradient.  The emulated backend's straight-through
+gradients are unchanged.
 """
 from __future__ import annotations
 
@@ -68,24 +73,25 @@ def _check_out_policy(out_policy) -> None:
                          f"only; got {out_policy.rounding}")
 
 
-#: backends with no backward: an operand requiring grad is refused there
+#: backends with no backward outside the autograd route
 _NO_BACKWARD = ("cuda", "pallas")
 
 
 def _refuse_grad(be: BK.Backend, *operands: Any) -> None:
     """Raise where autograd would see a kernel-backend call as constant:
-    grad mode on and a float tensor operand that requires grad."""
+    grad mode on and a float tensor operand that requires grad.  Only
+    the calls the autograd route refuses reach here in grad mode."""
     if be.name not in _NO_BACKWARD or not torch.is_grad_enabled():
         return
     if any(isinstance(a, torch.Tensor) and a.is_floating_point()
            and a.requires_grad for a in operands):
         raise BK.BackendUnsupportedError(
-            f"backend {be.name!r} has no backward: an operand that "
-            f"requires grad would get a zero gradient.  Autodiff through "
-            f"the kernels is ROADMAP Queue 1 item 4 (the port of "
-            f"repro.grad); until then run under torch.no_grad() or "
-            f"inference_mode, or use backend 'emulated' for "
-            f"straight-through gradients")
+            f"backend {be.name!r} has no backward for this call: with "
+            f"noise=, out_policy= or a wire-format x it is off the "
+            f"autograd route, and an operand that requires grad would "
+            f"get a zero gradient.  Drop those arguments to train through "
+            f"the kernels, run under torch.no_grad() or inference_mode, "
+            f"or use backend 'emulated' for straight-through gradients")
 
 
 def _act_ok(be: BK.Backend, pol, w_block: Optional[int], x: dict) -> bool:
@@ -270,6 +276,26 @@ def _plan_cls():
     return Plan
 
 
+def _grad_vjp():
+    # repro_torch.grad.vjp builds its autograd functions on top of
+    # gemm_and_tap / conv_and_tap, so it imports this module
+    from repro_torch.grad import vjp
+    return vjp
+
+
+def _routed(x, w, noise, out_policy, padding: Optional[str] = None) -> bool:
+    """Does this call take the autograd route?  ``padding`` is None for a
+    GEMM and the conv's padding otherwise.  Dense float operands that
+    autograd will differentiate take it; a call it will not differentiate
+    (serving under ``inference_mode``) runs the same forward directly."""
+    if not torch.is_grad_enabled() or padding not in (None, "SAME",
+                                                       "VALID"):
+        return False
+    return (_grad_vjp().routable(x, w, noise, out_policy)
+            and w.ndim == (2 if padding is None else 4)
+            and (x.requires_grad or w.requires_grad))
+
+
 def gemm(x: Any, w: Any, policy: PolicyLike = None, *,
          path: Optional[str] = None, out_policy=None,
          noise: Optional[torch.Tensor] = None) -> Any:
@@ -286,6 +312,10 @@ def gemm(x: Any, w: Any, policy: PolicyLike = None, *,
     if isinstance(policy, _plan_cls()):
         return policy.gemm(x, w, path=path, out_policy=out_policy,
                            noise=noise)
+    if _routed(x, w, noise, out_policy):
+        # the autograd route: the same forward (gemm_and_tap), backward
+        # GEMMs through the backend registry under the grad-path policies
+        return _grad_vjp().gemm(x, w, policy, path)
     return gemm_and_tap(x, w, resolve_policy(policy, path), path=path,
                         out_policy=out_policy, noise=noise)
 
@@ -310,6 +340,8 @@ def conv2d(x: Any, w: Any, policy: PolicyLike = None, *,
     if isinstance(policy, _plan_cls()):
         return policy.conv2d(x, w, path=path, stride=stride, padding=padding,
                              out_policy=out_policy, noise=noise)
+    if _routed(x, w, noise, out_policy, padding):
+        return _grad_vjp().conv2d(x, w, policy, stride, padding, path)
     return conv_and_tap(x, w, resolve_policy(policy, path), stride,
                         padding, path=path, out_policy=out_policy,
                         noise=noise)

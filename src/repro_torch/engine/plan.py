@@ -16,9 +16,12 @@ Chained layers hand activations over in the wire format:
                     out_policy=plan.out_policy_for("conv3_2"))
     z = plan.conv2d(y, w2, path="conv3_2")
 
-Backward plans (``Site.dx``/``dw``) arrive with the training slice and
-stay None here; until then a kernel-backend site refuses an operand that
-requires grad (``engine.core``), where it would get a zero gradient.
+Backward plans (``Site.dx``/``dw``) are bound with the forward: each
+site's two backward GEMMs resolve on the derived grad paths
+(``path#dx`` / ``path#dw``, ``repro_torch.grad``) and select their
+backend at bind time, so a strict bind refuses an unsupported backward
+backend before any training step runs.  A call whose float operands
+require grad takes the autograd route with the site's bound specs.
 
 ``model_paths=`` restricts the bound sites to an explicit list (and
 scopes prequantization to it) and binds policy-only entries for paths
@@ -41,8 +44,10 @@ from repro_torch.core.prequant import (cnn_rule_path, detect_tree_kind,
                                        is_prequant, quantize_cnn_param_tree)
 from repro_torch.engine import backends as BK
 from repro_torch.engine import taps as TAPS
-from repro_torch.engine.core import conv_and_tap, gemm_and_tap
+from repro_torch.engine.core import (_grad_vjp, _routed, conv_and_tap,
+                                     gemm_and_tap)
 from repro_torch.engine.policy_map import PolicyLike, PolicyMap, resolve_policy
+from repro_torch.grad.paths import GradSpec, grad_path, resolve_grad_policy
 
 __all__ = ["Site", "Plan", "bind", "params_to", "unpack_packed"]
 
@@ -75,8 +80,11 @@ class Site:
     backend: BK.Backend             #: concrete execution, selected at bind
     fallback: bool = False          #: backend != the policy's requested one
     prequantized: bool = False      #: weight leaf holds the wire format
-    dx: Any = None                  #: backward plans: training slice
-    dw: Any = None
+    #: backward-GEMM plans resolved on the derived grad paths
+    #: (``path#dx`` / ``path#dw``) at bind time, policy and backend; None
+    #: (a hand-built Site) resolves per call against the site's policy
+    dx: Optional[GradSpec] = None
+    dw: Optional[GradSpec] = None
 
 
 class Plan:
@@ -133,11 +141,16 @@ class Plan:
     def gemm(self, x: Any, w: Any, *, path: Optional[str] = None,
              out_policy=None, noise=None) -> Any:
         site = self._sites.get(path)
+        routed = _routed(x, w, noise, out_policy)
         if site is not None and site.kind == "gemm":
+            if routed:
+                return _grad_vjp().gemm_bound(x, w, site)
             return gemm_and_tap(x, w, site.policy, backend=site.backend,
                                 path=path, out_policy=out_policy,
                                 noise=noise)
         # unbound path: per-call resolution (strict kept)
+        if routed:
+            return _grad_vjp().gemm(x, w, self.policy, path, self.strict)
         return gemm_and_tap(x, w, resolve_policy(self.policy, path),
                             strict=self.strict, path=path,
                             out_policy=out_policy, warned=self._warned,
@@ -147,10 +160,16 @@ class Plan:
                stride: int = 1, padding: str = "SAME",
                out_policy=None, noise=None) -> Any:
         site = self._sites.get(path)
+        routed = _routed(x, w, noise, out_policy, padding)
         if site is not None and site.kind == "conv":
+            if routed:
+                return _grad_vjp().conv2d_bound(x, w, site, stride, padding)
             return conv_and_tap(x, w, site.policy, stride, padding,
                                 backend=site.backend, path=path,
                                 out_policy=out_policy, noise=noise)
+        if routed:
+            return _grad_vjp().conv2d(x, w, self.policy, stride, padding,
+                                      path, self.strict)
         return conv_and_tap(x, w, resolve_policy(self.policy, path), stride,
                             padding, strict=self.strict, path=path,
                             out_policy=out_policy, warned=self._warned,
@@ -174,9 +193,8 @@ class Plan:
 
     def describe(self) -> str:
         """Human-readable site table (examples / serving admission logs),
-        in ``repro``'s layout.  The grad column reads ``float`` for a site
-        with no backward plan, as ``repro``'s does for an unresolved one:
-        every port site until the training slice binds them."""
+        in ``repro``'s layout; the grad column names each bound backward
+        GEMM's L and backend (``float`` for a float one)."""
         lines = []
         for path in sorted(self._sites):
             s = self._sites[path]
@@ -318,6 +336,25 @@ def bind(params: Any, policy: PolicyLike,
                                                                  wanted))
     warned: set = set()   # fresh per bind: each plan reports its own
 
+    def bind_grad(path: str, which: str) -> GradSpec:
+        # a backward plan resolves on the derived grad path; a float
+        # backward GEMM needs no backend, a BFP one selects (and under
+        # strict refuses) its backend here, before any training step.
+        # The backward GEMMs contract transposed or gradient operands, so
+        # support is checked on the policy alone; a K-tile fitted at call
+        # time (grad.fit_grad_policy) selects again then
+        gpol = resolve_grad_policy(policy, path, which)
+        if gpol is None:
+            return GradSpec(None, None)
+        gpath = grad_path(path, which)
+        if (gpol.backend_name, path) in warned:
+            # the forward site already warned of this downgrade: no second
+            # and third warning for #dx / #dw (strict raises regardless)
+            warned.add((gpol.backend_name, gpath))
+        be = BK.select_backend(gpol, None, strict=strict, path=gpath,
+                               warned=warned)
+        return GradSpec(gpol, be)
+
     def site(path, skind, leaf, prequantized):
         pol = resolve_policy(policy, path)
         if pol is None:
@@ -326,7 +363,8 @@ def bind(params: Any, policy: PolicyLike,
             be = BK.select_backend(pol, leaf, strict=strict, path=path,
                                    warned=warned)
             fb = be.name != pol.backend_name
-        return Site(path, skind, pol, be, fb, prequantized=prequantized)
+        return Site(path, skind, pol, be, fb, prequantized=prequantized,
+                    dx=bind_grad(path, "dx"), dw=bind_grad(path, "dw"))
 
     sites: Dict[str, Site] = {}
     for path, skind, leaf in _discover_sites(qparams):

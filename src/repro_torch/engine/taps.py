@@ -29,9 +29,11 @@ Overhead contract:
     (the Table-4 analysis mode): run the model through ``apply`` (or
     ``CnnServeEngine(jit=False)``) to measure.
 
-The backward kinds (``gemm_dx``, ``gemm_dw``, ``conv_dx``, ``conv_dw``)
-of ``repro``'s custom VJPs are not emitted yet: they arrive with the port
-of ``repro.grad``.
+The backward GEMMs of ``repro_torch.grad`` emit the backward kinds
+(``gemm_dx``, ``gemm_dw``, ``conv_dx``, ``conv_dw``) on their derived
+grad paths (``path#dx`` / ``path#dw``), with the operands they executed
+(already transposed) and the tile-fitted policy; ``float_fn`` is the
+float GEMM on the same operands.
 """
 from __future__ import annotations
 
@@ -54,9 +56,9 @@ class TapEvent:
     """
 
     path: Optional[str]     #: layer path ("conv1_1", ...)
-    kind: str               #: "gemm" | "conv" (the backward kinds
+    kind: str               #: "gemm" | "conv", or a backward kind:
                             #: "gemm_dx" | "gemm_dw" | "conv_dx" |
-                            #: "conv_dw" arrive with the grad port)
+                            #: "conv_dw"
     policy: Any             #: resolved BFPPolicy (None = float site)
     backend: str            #: name of the backend that executed
     x: Any                  #: tensor, or the activation wire format

@@ -12,6 +12,7 @@ from repro_torch.core.policy import PALLAS_TILED, TPU_TILED
 from repro_torch.core.prequant import (prequant_act, prequant_conv_leaf,
                                        prequant_leaf)
 from repro_torch import engine as EG
+from repro_torch.engine import PolicyMap
 from repro_torch import kernels as K
 from repro_torch.kernels import bfp_conv as KC
 from repro_torch.kernels import bfp_matmul as KM
@@ -762,3 +763,130 @@ def test_cuda_table4_analysis_equals_the_cpu(cuda):
                   "output_multi", "relu_ex"):
             a, b = getattr(g, f), getattr(w, f)
             assert a == b or abs(a - b) < 1e-3, (g.name, f, a, b)
+
+
+#: (x shape, w shape, the backward GEMM held, its fitted block, its core)
+#: one backward GEMM per route: the mma core (conv1_2-like #dw over
+#: M = 512 at block 128), the tile kernel at a block that is no power of
+#: two (a 7x7 stage's #dw over M = 392: block 98) and at N' = 27 (conv1_1's
+#: #dx: kh*kw*C)
+BACKWARD_ROUTES = (((2, 16, 16, 64), (3, 3, 64, 64), "conv_dw", 128, "mma"),
+                   ((8, 7, 7, 32), (3, 3, 32, 32), "conv_dw", 98, "tile"),
+                   ((2, 8, 8, 3), (3, 3, 3, 64), "conv_dx", 64, "tile"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", range(3), ids=["mma", "tile-bk98",
+                                                 "tile-n27"])
+def test_cuda_backward_gemms_match_plain_versions(cuda, route):
+    """A conv's backward on the kernel backend: each backward GEMM (its
+    operands captured by a tap) equal to the plain version on the same
+    card tensors, on the predicted core, and the whole backward
+    deterministic (run twice, ``torch.equal``)."""
+    xs, ws, kind, bk, core = BACKWARD_ROUTES[route]
+    pol = PALLAS_TILED.with_(straight_through=False)
+    x = t(normal(xs, seed=route)).to(cuda).relu()
+    w = t(normal(ws, seed=route + 1, scale=0.1)).to(cuda)
+    g = t(normal((*xs[:3], ws[3]), seed=route + 2)).to(cuda)
+
+    def backward():
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        events = []
+        with EG.taps(events.append):
+            (EG.conv2d(xr, wr, pol, path="c") * g).sum().backward()
+        return xr.grad, wr.grad, {e.kind: e for e in events}
+
+    K.reset_launch_counts()
+    dx, dw, ev = backward()
+    counts = K.launch_counts()
+    e = ev[kind]
+    k, n = e.x.shape[1], e.w.shape[1]
+    assert e.policy.block_k == bk and e.backend == "pallas"
+    assert KM.matmul_core(False, bk, k, n, 8, 8) == core
+    assert torch.equal(e.y, KM.bfp_matmul_plain(e.x, e.w, 8, 8, bk))
+    other = ev["conv_dx" if kind == "conv_dw" else "conv_dw"]
+    pb = other.policy.block_k
+    assert torch.equal(other.y, KM.bfp_matmul_plain(other.x, other.w, 8, 8,
+                                                    pb))
+    assert counts["bfp_conv2d"] == 1 and counts["bfp_matmul"] == 2
+    dx2, dw2, _ = backward()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert torch.isfinite(dx).all() and torch.isfinite(dw).all()
+    torch.cuda.synchronize()
+
+
+def _lenet_train_policy(**kw):
+    return PolicyMap.of(
+        ("^c1$", PALLAS_TILED.with_(block_k=25, straight_through=False,
+                                    **kw)),
+        default=PALLAS_TILED.with_(block_k=16, straight_through=False, **kw))
+
+
+def _register_plain_backend():
+    """Backend "plain": the kernels' plain versions, for dense float
+    operands (all a training step gives the engine)."""
+    EG.register_backend(
+        "plain", lambda x, w, p, out_policy=None: KM.bfp_matmul_plain(
+            x, w, p.l_i, p.l_w, p.block_k),
+        conv=lambda x, w, p, stride, padding, out_policy=None:
+        KC.bfp_conv2d_plain(x, w, p.l_i, p.l_w, p.block_k, stride,
+                            padding))
+
+
+def _far_share(got, want):
+    """Share of elements off by more than 1e-5 relative + 1e-5 of the
+    largest magnitude (the CPU parity rule of test_torch_train_cnn.py)."""
+    d = (got - want).abs()
+    return float((d > 1e-5 * want.abs() + 1e-5 * float(
+        want.abs().max())).float().mean())
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_matches_the_cpu(cuda):
+    """One LeNet step on the kernels: ``torch.equal`` to the same step on
+    the kernels' plain versions on the card, and deterministic.  Against
+    the same step on the CPU, where float reductions (the log-softmax,
+    col2im, the bias sums) order differently, by the CPU parity rule of
+    ``test_torch_train_cnn.py``: the loss within 1e-5 relative, the
+    grad norm within 1e-4 relative; the per-worker gradients and the
+    parameters within 1e-5 relative + 1e-5 of the leaf's largest
+    magnitude for all but 1% of elements (a last bit can move a quantized
+    block's rounding), and every parameter within AdamW's ``2.5 * lr``."""
+    from repro_torch import _tree
+    from repro_torch.train import cnn as TC
+    _register_plain_backend()
+    cfg = TC.CnnTrainConfig(model="lenet", workers=2, batch=16, lr=1e-3,
+                            grad_bits=8, policy=_lenet_train_policy())
+    pcfg = TC.CnnTrainConfig(model="lenet", workers=2, batch=16, lr=1e-3,
+                             grad_bits=8,
+                             policy=_lenet_train_policy(backend="plain"))
+    s_cpu = TC.init_state(cfg, device="cpu")
+    x, y, _ = TC.data_batch(cfg, 0, device="cpu")
+    s_gpu = _tree.tree_map(lambda a: a.to(cuda), s_cpu)
+    xg, yg = x.to(cuda), y.to(cuda)
+    step = TC.make_cnn_train_step(cfg)
+    a, ma = step(s_cpu, (x, y))
+    K.reset_launch_counts()
+    b, mb = step(s_gpu, (xg, yg))
+    assert K.launch_counts()["bfp_matmul"] > 0
+    c, _ = step(s_gpu, (xg, yg))
+    K.reset_launch_counts()
+    p, mp = TC.make_cnn_train_step(pcfg)(s_gpu, (xg, yg))
+    assert not any(K.launch_counts().values())
+    lb, lc, lp = (_tree.flatten(s)[0] for s in (b, c, p))
+    assert len(lb) == len(lc) == len(lp)
+    assert all(torch.equal(u, v) for u, v in zip(lb, lc))
+    assert all(torch.equal(u, v) for u, v in zip(lb, lp))
+    assert torch.equal(mb["loss"], mp["loss"])
+    assert abs(float(ma["loss"]) - float(mb["loss"])) <= 1e-5 * abs(
+        float(ma["loss"]))
+    assert abs(float(ma["grad_norm"]) - float(mb["grad_norm"])) <= (
+        1e-4 * float(ma["grad_norm"]))
+    apply = MODELS["lenet"].apply
+    _, g_cpu = TC._worker_grads(cfg, apply, s_cpu.params, x, y)
+    _, g_gpu = TC._worker_grads(cfg, apply, s_gpu.params, xg, yg)
+    for u, v in zip(_tree.flatten(g_gpu)[0], _tree.flatten(g_cpu)[0]):
+        assert _far_share(u.cpu(), v) <= 0.01
+    for u, v in zip(_tree.flatten(b.params)[0], _tree.flatten(a.params)[0]):
+        assert _far_share(u.cpu(), v) <= 0.01
+        assert float((u.cpu() - v).abs().max()) <= 2.5 * cfg.lr

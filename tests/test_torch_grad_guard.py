@@ -1,12 +1,15 @@
-"""The kernel backend refuses operands that require grad (no silent zero
-gradients), and the emulated route's straight-through gradients still
-match ``jax.grad`` of ``repro``'s engine.
+"""Gradients through the kernel backend match ``repro``'s, the calls off
+the autograd route still refuse operands that require grad (no silent
+zero gradients), and the emulated route's straight-through gradients
+still match ``jax.grad`` of ``repro``'s engine.
 
-On the kernel backend ("cuda", alias "pallas") the plain version's round
-has zero derivative and a CUDA launch writes fresh outputs, so autograd
-would hand x and w a zero gradient where ``repro`` routes the call
-through ``repro.grad``'s custom VJP and returns a non-zero one.  Until
-that VJP is ported the port raises ``BackendUnsupportedError`` there.
+On the kernel backend ("cuda", alias "pallas") a dense float operand
+that requires grad takes ``repro_torch.grad``'s autograd route, where
+``repro`` takes ``repro.grad``'s custom VJP: the same forward, and the
+backward GEMMs on the engine.  A call the route refuses (``noise=``,
+``out_policy=``, a wire-format x) has no backward there, since the plain
+version's round has zero derivative and a CUDA launch writes fresh
+outputs, so it raises ``BackendUnsupportedError``.
 
 Tolerance: the backward products are float GEMMs (XLA's and PyTorch's
 summation orders differ): 1e-5 relative and 1e-5 of the largest
@@ -23,6 +26,7 @@ from repro.core.policy import PALLAS_TILED as J_PALLAS_TILED
 from repro.core.policy import TPU_TILED as J_TPU_TILED
 from repro_torch import engine as EG
 from repro_torch.core.policy import PALLAS_TILED, TPU_TILED
+from repro_torch.core.prequant import prequant_act
 from test_torch_util import assert_bits_equal, normal, t, to_numpy_tree
 
 BK = 32
@@ -93,12 +97,59 @@ def _kernel_calls():
 
 @pytest.mark.parametrize("which", ["x", "w"])
 @pytest.mark.parametrize("i", range(4), ids=[c[0] for c in _kernel_calls()])
-def test_kernel_backend_refuses_operands_that_require_grad(i, which):
+def test_kernel_backend_grads_match_reference(refs, i, which):
+    """An operand that requires grad gets ``repro``'s gradient (the
+    policy is straight-through, so the backward GEMMs are float: the
+    stated tolerance): the GEMMs against its Pallas matmul's
+    ``jax.grad``, the convs against its emulated TILED conv (R1)."""
     _, (a, b), call = _kernel_calls()[i]
     at, bt = t(a), t(b)
+    leaf = at if which == "x" else bt
+    leaf.requires_grad_()
+    gy = GY if a is X else GC
+    (call(at, bt) * t(gy)).sum().backward()
+    dx_ref, dw_ref = refs[0] if a is X else refs[4]
+    want = dx_ref if which == "x" else dw_ref
+    assert np.abs(want).max() > 1.0
+    _close(leaf.grad, want)
+    other = bt if which == "x" else at
+    assert other.grad is None
+
+
+def _off_route_calls():
+    """(label, call) pairs the autograd route refuses on the kernel
+    backend; each takes (x, w) with one of them requiring grad."""
+    kp = PALLAS_TILED.with_(block_k=BK)
+    return [("gemm-out_policy", (X, W),
+             lambda x, w: EG.gemm(x, w, kp, out_policy=kp)),
+            ("gemm-noise", (X, W),
+             lambda x, w: EG.gemm(x, w, kp, noise=torch.rand(x.shape))),
+            ("conv2d-out_policy", (XC, WC),
+             lambda x, w: EG.conv2d(x, w, kp,
+                                    out_policy=kp.with_(block_k=8))),
+            ("conv2d-noise", (XC, WC),
+             lambda x, w: EG.conv2d(x, w, kp, noise=torch.rand(
+                 2 * 7 * 6, 3 * 3 * 32))),
+            ("gemm-wire-x", (X, W),
+             lambda x, w: EG.gemm(prequant_act(x.detach(), kp), w, kp))]
+
+
+#: (call, operand that requires grad): a wire-format x holds integer
+#: mantissas, so only its weight can require grad
+OFF_ROUTE = [(i, which) for i in range(4) for which in ("x", "w")] + [
+    (4, "w")]
+
+
+@pytest.mark.parametrize("i,which", OFF_ROUTE, ids=[
+    f"{_off_route_calls()[i][0]}-{which}" for i, which in OFF_ROUTE])
+def test_kernel_backend_refuses_grad_off_the_autograd_route(i, which):
+    _, (a, b), call = _off_route_calls()[i]
+    at, bt = t(a), t(b)
     (at if which == "x" else bt).requires_grad_()
-    with pytest.raises(EG.BackendUnsupportedError, match="Queue 1 item 4"):
+    with pytest.raises(EG.BackendUnsupportedError, match="no backward"):
         call(at, bt)
+    with torch.no_grad():      # served as before
+        assert call(at, bt) is not None
 
 
 @pytest.mark.parametrize("i", range(4), ids=[c[0] for c in _kernel_calls()])

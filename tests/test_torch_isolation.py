@@ -111,3 +111,31 @@ def test_packed_artifact_entry_points_need_cuda_unless_asked(monkeypatch,
     # a tree without containers needs no device to pass through
     assert float_params(params)["c1"]["w"] is params["c1"]["w"]
     assert unpack_packed(params) is params
+
+
+def test_training_entry_points_need_cuda_unless_asked(monkeypatch):
+    """The modules of the training slice (grad, optim, dist, data, train)
+    import nothing of the reference (the scan above) and their entry
+    points default to the card, raising without it."""
+    from repro_torch.data.pipeline import image_batch
+    from repro_torch.dist import compress
+    from repro_torch.train import cnn as TC
+
+    assert {"grad", "optim", "dist", "data", "train"} <= {
+        f.parent.name for f in _port_files()}
+    cfg = TC.CnnTrainConfig(model="lenet", batch=4, grad_bits=8)
+    wire = compress.pack_leaf(torch.ones(3, 5), 8).to_bytes()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: TC.init_state(cfg),
+                 lambda: TC.data_batch(cfg, 0),
+                 lambda: TC.train_cnn(cfg, steps=1),
+                 lambda: image_batch(torch.Generator(), 10, 2, 8, 1),
+                 lambda: compress.unpack_leaf(wire)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # asked for explicitly, the CPU trains
+    state = TC.init_state(cfg, device="cpu")
+    x, y, _ = TC.data_batch(cfg, 0, device="cpu")
+    new, metrics = TC.make_cnn_train_step(cfg)(state, (x, y))
+    assert int(new.step) == 1 and np.isfinite(float(metrics["loss"]))
+    assert compress.unpack_leaf(wire, "cpu").shape == (3, 5)

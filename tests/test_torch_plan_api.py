@@ -104,10 +104,9 @@ def test_bind_without_model_paths_is_unchanged(lenet):
 
 @pytest.mark.parametrize("straight_through", [True, False])
 def test_describe_matches_repro(lenet, straight_through):
-    """The site table, line for line.  A straight-through policy has a
-    float backward in ``repro`` too, so whole lines match; otherwise
-    ``repro`` names its bound backward GEMMs, which the port does not
-    bind yet, and the forward columns match."""
+    """The site table, line for line, the bound backward GEMMs of the
+    grad column included (float under a straight-through policy, L8/8 on
+    the emulated backend otherwise)."""
     jpm = JPolicyMap.of(("^c1$", None), default=JBFPPolicy(
         straight_through=straight_through))
     pm = PolicyMap.of(("^c1$", None), default=BFPPolicy(
@@ -116,13 +115,9 @@ def test_describe_matches_repro(lenet, straight_through):
     got = EG.bind(params_from_numpy(lenet, "cpu"), pm, tree="cnn",
                   prequantize=False, device="cpu").describe()
     assert len(got.splitlines()) == 4
-    if straight_through:
-        assert got == want
-    else:
-        assert [ln.split(" grad[")[0] for ln in got.splitlines()] == \
-            [ln.split(" grad[")[0] for ln in want.splitlines()]
-        assert all(ln.endswith("grad[dx=float,dw=float]")
-                   for ln in got.splitlines())
+    assert got == want
+    assert ("grad[dx=L8/8@emulated,dw=L8/8@emulated]" in got) == (
+        not straight_through)
     assert "[prequant]" not in got and "c1" in got and "float" in got
 
 
