@@ -160,7 +160,35 @@ raises (and so exits non-zero) when it fails:
    equals the in-graph step bit for bit, the checkpoint round trip is
    ``torch.equal``, and step 1 on the card is within 1e-5 (loss,
    relative) and ``2.5 * lr`` (params) of the same step on the CPU;
-13. a JSON line of per-kernel numbers, then the result line
+13. the tune slice on the card.  ``tuned_vgg16_full``: phase 4's 16
+   VGG16 sites tuned at batch 8 on the routes they are served by
+   (``tune.autotune.tune_plan``; block 128 is pinned, so only the mma
+   core's tile moves) and the canonical GEMMs (``tune.shapes``) with a
+   free block, each at its tuned ``bk`` ``torch.equal`` to the plain
+   version at that block, into a temporary cache whose entries carry
+   the card's target; phase 4's 16 requests served from a plan bound
+   with it (``bind(tune_cache=)``): logits ``torch.equal`` to phase 4's,
+   launches equal, no cache miss and one hit per site run; tuned and
+   untuned batch-8 forwards in A/B pairs; ``python -m repro_torch.tune
+   --smoke`` once as a subprocess.  ``precision_vgg16_full``: the
+   per-site mantissa-width search (``tune.search_precision``) on phase
+   4's weights and images, ``PALLAS_TILED`` base (every L_w 2-8 on the
+   mma core), budget 1e-2 and top-1 tolerance 0.25 (the CLI's): every
+   site's NSR within budget and its fresh NSR within its bound, the
+   map's tapped forward on the kernels ``torch.equal`` to the plain
+   versions at every site, the map saved ``bfp_packed_v2`` (bytes beside
+   phase 11's fixed-L artifact) and served by a cold-started tenant
+   bit-equal to a direct apply under the map; reduced VGG16 searched on
+   the card and on the CPU, the maps equal.  ``load_resnet50_full``:
+   phase 8's ResNet-50 plan closed loop (64 requests, bucket 8), then
+   open loop on wall time (``serve.load.run_open_loop``), 256 Poisson
+   arrivals at 0.5x and 0.9x that capacity in continuous batching and at
+   0.9x in bucket batching (``max_wait`` 2): p50 / p99 / mean, goodput,
+   shed / expired / failed, the accounting exact, no failure, every
+   completed logit ``torch.equal`` to its image's direct batch-8
+   forward; LeNet's virtual-time rows (``call_cost``) on the card equal
+   to the CPU's for the same trace, with deadlines and shedding;
+14. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
@@ -420,6 +448,31 @@ def diff(a, b) -> float:
             b if isinstance(b, tuple) else (b,))
     return max(((u.float() - v.float()).abs().nan_to_num(0.0).max().item()
                 for u, v in zip(a, b)), default=0.0)
+
+
+def tree_leaves(tree, device=None) -> tuple:
+    """The tensors of a tree (a tensor, a wire-format {"m", "s"} dict, a
+    params tree, a train state) in the port's leaf order, moved to
+    ``device`` when given."""
+    from repro_torch import _tree
+    return tuple(v.to(device) if device else v
+                 for v in _tree.flatten(tree)[0])
+
+
+def same_tree(a, b, nan_aware: bool = True) -> bool:
+    """The one tree comparator of every phase: the same number of leaves,
+    each pair bit-equal — NaN-aware bit patterns by default (``nan_bits``:
+    NaN == NaN, -0.0 != +0.0), else ``torch.equal`` (NaN != NaN)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if nan_aware:
+        return same_bits(la, lb)
+    return len(la) == len(lb) and all(torch.equal(u, v)
+                                      for u, v in zip(la, lb))
+
+
+def tree_diff(a, b) -> float:
+    """Largest absolute difference over two trees' leaves, NaN as 0."""
+    return diff(tree_leaves(a), tree_leaves(b))
 
 
 def weight_at(tree, path):
@@ -730,9 +783,7 @@ def packed_phase(dev, card, pol, detail, vgg_params, vgg_images, vgg_served,
         fplan = EG.bind(fparams, pol, tree="cnn", strict=True, device=dev)
         sync()
         row["f32_restore_bind_s"] = time.perf_counter() - t0
-        a, b = (_tree.flatten(p)[0] for p in (ten.plan.params, fplan.params))
-        check(len(a) == len(b) and all(torch.equal(u, v)
-                                       for u, v in zip(a, b)),
+        check(same_tree(ten.plan.params, fplan.params, nan_aware=False),
               f"{label}: unpacked sidecars differ from the float32 "
               f"artifact's bind")
         del fparams, fplan, cparams, srv, ten
@@ -937,10 +988,6 @@ def train_phase(dev, card, pol, detail, launches, vgg_params, gen):
     out = detail["train"] = {}
     sync = torch.cuda.synchronize
 
-    def leaves(tree, device=None):
-        return tuple(v.to(device) if device else v
-                     for v in _tree.flatten(tree)[0])
-
     def live(params):
         """The params as fresh leaves that require grad."""
         leaves, treedef = _tree.flatten(params)
@@ -994,15 +1041,15 @@ def train_phase(dev, card, pol, detail, launches, vgg_params, gen):
         pwall = (time.perf_counter() - t0) * 1e3
         check(not any(K.launch_counts().values()),
               f"{label}: the plain-version step launched a kernel")
-        check(same_bits(leaves(new), leaves(plain))
+        check(same_tree(new, plain)
               and torch.equal(m["loss"], pm["loss"]),
               f"{label}: step {i + 1} on the kernels != the plain-version "
               f"step (params, OptState, residuals; max |diff| "
-              f"{diff(leaves(new), leaves(plain))})")
+              f"{tree_diff(new, plain)})")
         if i == 0:
             launches[label] = counts
             again, _ = step(state, (x, y))
-            check(same_bits(leaves(again), leaves(new)),
+            check(same_tree(again, new),
                   f"{label}: step 1 repeated differs")
         row["steps"].append({"loss": loss, "grad_norm": float(
             m["grad_norm"]), "ms": wall, "plain_ms": pwall})
@@ -1155,17 +1202,17 @@ def train_phase(dev, card, pol, detail, launches, vgg_params, gen):
         store.save(d2, int(st.step), st)
         back, bstep = store.restore(d2, st, device=dev)
         check(bstep == 8 and isinstance(back, TC.CnnTrainState)
-              and same_bits(leaves(back), leaves(st)),
+              and same_tree(back, st),
               f"{label}: the checkpoint round trip differs")
         s0 = TC.init_state(ccfg, device=dev)
         xb, yb, _ = TC.data_batch(ccfg, 0, device=dev)
         sw, mw = TC.packed_exchange_step(ccfg, s0, (xb, yb))
         sm, mm = TC.make_cnn_train_step(ccfg)(s0, (xb, yb))
-        check(same_bits(leaves(sw), leaves(sm))
+        check(same_tree(sw, sm)
               and torch.equal(mw["loss"], mm["loss"])
               and mw["wire_bytes"] == wire["per_step_bytes"],
               f"{label}: the packed exchange differs from the in-graph "
-              f"step (max |diff| {diff(leaves(sw), leaves(sm))})")
+              f"step (max |diff| {tree_diff(sw, sm)})")
         # step 1 on the kernels against the same step on the plain
         # versions, on the card: bit for bit
         pccfg = dataclasses.replace(ccfg, policy=pol.with_(backend="plain"))
@@ -1173,11 +1220,11 @@ def train_phase(dev, card, pol, detail, launches, vgg_params, gen):
         sp, mp = TC.make_cnn_train_step(pccfg)(s0, (xb, yb))
         check(not any(K.launch_counts().values()),
               f"{label}: the plain-version step launched a kernel")
-        check(same_bits(leaves(sm), leaves(sp))
+        check(same_tree(sm, sp)
               and torch.equal(mm["loss"], mp["loss"]),
               f"{label}: step 1 on the kernels != the plain-version step "
               f"(params, OptState, residuals; max |diff| "
-              f"{diff(leaves(sm), leaves(sp))})")
+              f"{tree_diff(sm, sp)})")
         # and against the same step on the CPU, by the CPU parity test's
         # rule (tests/test_torch_train_cnn.py): float reductions (the
         # log-softmax, col2im, the bias sums) order differently there
@@ -1186,7 +1233,7 @@ def train_phase(dev, card, pol, detail, launches, vgg_params, gen):
         t0 = time.perf_counter()
         sc, mc = TC.make_cnn_train_step(ccfg)(s0c, (xc, yc))
         cpu_s = time.perf_counter() - t0
-        check(same_bits(leaves(s0c), leaves(s0, "cpu"))
+        check(same_tree(s0c, tree_leaves(s0, "cpu"))
               and torch.equal(xc, xb.cpu()),
               f"{label}: the CPU's initial state or batch differs")
         dloss = abs(float(mc["loss"]) - float(mm["loss"]))
@@ -1204,14 +1251,14 @@ def train_phase(dev, card, pol, detail, launches, vgg_params, gen):
         gc = grad_once(s0c.params, xc[:w], yc[:w], pol, ccfg.num_classes,
                        apply)
         far = {"params": [], "grads": []}
-        for what, pairs in (("params", zip(leaves(sm.params, "cpu"),
-                                           leaves(sc.params))),
+        for what, pairs in (("params", zip(tree_leaves(sm.params, "cpu"),
+                                           tree_leaves(sc.params))),
                             ("grads", zip((g.cpu() for g in gd), gc))):
             for u, v in pairs:
                 d = (u - v).abs()
                 far[what].append(float((d > 1e-5 * v.abs() + 1e-5 * float(
                     v.abs().max())).float().mean()))
-        dparam = diff(leaves(sm.params, "cpu"), leaves(sc.params))
+        dparam = diff(tree_leaves(sm.params, "cpu"), tree_leaves(sc.params))
         check(max(far["params"] + far["grads"]) <= 0.01
               and dparam <= 2.5 * ccfg.lr,
               f"{label}: step 1 on the card vs the CPU: share of elements "
@@ -1239,6 +1286,365 @@ def train_phase(dev, card, pol, detail, launches, vgg_params, gen):
           f"{cpu_s:.2f} s); launches "
           f"{ {k: v for k, v in launches[label].items() if v} }  "
           f"[{card}]", flush=True)
+
+
+#: phase 13's open-loop runs of ResNet-50: (label, fraction of the
+#: closed-loop capacity, batching, max_wait)
+LOAD_RUNS = (("continuous_0.5x", 0.5, "continuous", 4),
+             ("continuous_0.9x", 0.9, "continuous", 4),
+             ("bucket_0.9x", 0.9, "bucket", 2))
+#: tuned / untuned batch-8 forward A/B pairs (one pair misleads)
+AB_PAIRS = 12
+
+
+def tuned_phase(dev, card, pol, detail, launches, vgg_params, vgg_images,
+                vgg_served, vgg_counts, gen):
+    """``tuned_vgg16_full``: phase 4's VGG16 sites tuned on the card, the
+    canonical GEMMs with a free block, and phase 4's 16 requests served
+    from a plan bound with the cache (see the module docstring, phase
+    13)."""
+    from repro_torch import engine as EG
+    from repro_torch import kernels as K
+    from repro_torch.kernels import bfp_matmul as KM
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import vgg
+    from repro_torch.serve.cnn import CnnServeEngine
+    from repro_torch.tune import CARD_TARGET, TuneCache, use_cache
+    from repro_torch.tune.autotune import tune_gemm, tune_plan
+    from repro_torch.tune.shapes import GEMM_LAYERS
+
+    label = "tuned_vgg16_full"
+    row = detail[label] = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        path = os.path.join(tmp, "tune_cache.json")
+        cache = TuneCache.load(path)
+        plan = EG.bind(vgg_params, pol, tree="cnn", strict=True)
+        x8 = vgg_images[:8].to(dev)
+        t0 = time.perf_counter()
+        ents = tune_plan(plan, vgg.apply, x8, cache=cache, max_steps=4)
+        row["tune_sites_s"] = time.perf_counter() - t0
+        check(sorted(ents) == sorted(plan.sites) and len(ents) == 16,
+              f"{label}: tuned {sorted(ents)}, sites {sorted(plan.sites)}")
+        row["entries"] = ents
+        free = pol.with_(block_k=None)
+        row["gemm_free"] = {}
+        for name, b, k, n in GEMM_LAYERS:
+            xg = torch.randn((b, k), generator=gen).to(dev)
+            wg = (0.1 * torch.randn((k, n), generator=gen)).to(dev)
+            ent = tune_gemm(b, k, n, free, cache=cache, x=xg, w=wg,
+                            max_steps=8)
+            with use_cache(cache):
+                got = ops.bfp_matmul(xg, wg, free)
+            want = KM.bfp_matmul_plain(xg, wg, free.l_i, free.l_w, ent["bk"])
+            check(torch.equal(got, want),
+                  f"{label}: {name} at its tuned bk={ent['bk']} differs "
+                  f"from the plain version (max |diff| {diff(got, want)})")
+            row["gemm_free"][name] = ent
+            print(f"tune {label} {name} ({b},{k},{n}) free block -> "
+                  f"bm={ent['bm']} bn={ent['bn']} bk={ent['bk']} "
+                  f"{ent['us']:.1f} us in {ent['steps']} steps, bit-equal "
+                  f"to the plain version at bk={ent['bk']}  [{card}]",
+                  flush=True)
+        cache.save()
+        # sites of one shape (conv3_2 and conv3_3, ...) share one entry;
+        # the served run below shows that every site finds one
+        check(all(k.endswith(":" + CARD_TARGET) for k in cache.entries)
+              and TuneCache.load(path).entries == cache.entries,
+              f"{label}: saved entries {sorted(cache.entries)}")
+        for site, ent in ents.items():
+            tile = " ".join(f"{k}={v}" for k, v in ent.items()
+                            if k not in ("us", "steps"))
+            print(f"tune {label} {site}: {tile} {ent['us']:.1f} us "
+                  f"({ent['steps']} steps)  [{card}]", flush=True)
+
+        # serve phase 4's requests from a plan bound with the cache
+        tplan = EG.bind(vgg_params, pol, tree="cnn", strict=True,
+                        tune_cache=path)
+        eng = CnnServeEngine(None, vgg.apply, tplan, slots=8)
+        reqs = [eng.submit(image=vgg_images[i]) for i in range(16)]
+        tc = tplan.tune_cache
+        K.reset_launch_counts()
+        eng.run()
+        torch.cuda.synchronize()
+        launches[label] = K.launch_counts()
+        served = torch.from_numpy(np.stack([r.logits for r in reqs]))
+        check(all(r.error is None for r in reqs)
+              and eng.stats["completed"] == 16,
+              f"{label}: serving stats {eng.stats}")
+        check(torch.equal(served, vgg_served),
+              f"{label}: tuned logits differ from phase 4's (max |diff| "
+              f"{diff(served, vgg_served)})")
+        check(launches[label] == vgg_counts,
+              f"{label}: launches {launches[label]} != phase 4's "
+              f"{vgg_counts}")
+        check(tc.misses == 0 and tc.hits == 16 * eng.ncalls,
+              f"{label}: cache hits {tc.hits}, misses {tc.misses} for "
+              f"{16 * eng.ncalls} site runs")
+        row.update(hits=tc.hits, misses=tc.misses, forwards=eng.ncalls)
+        print(f"path {label}: 16 requests served from the tuned plan, "
+              f"logits torch.equal to phase 4's, launches equal, cache "
+              f"hits {tc.hits} misses {tc.misses} ({eng.ncalls} forwards "
+              f"x 16 sites)", flush=True)
+
+        # tuned against untuned forward, many A/B pairs
+        fu, ft = plan.jit_forward(vgg.apply), tplan.jit_forward(vgg.apply)
+        pairs = [(cuda_ms(lambda: fu(x8), reps=5),
+                  cuda_ms(lambda: ft(x8), reps=5)) for _ in range(AB_PAIRS)]
+        un, tu = (float(np.median([p[i] for p in pairs])) for i in (0, 1))
+        wins = sum(b < a for a, b in pairs)
+        row["forward_ab"] = {"untuned_ms": [p[0] for p in pairs],
+                             "tuned_ms": [p[1] for p in pairs]}
+        print(f"time {label}: forward batch 8 untuned median {un:.4f} ms, "
+              f"tuned median {tu:.4f} ms, tuned faster in {wins} of "
+              f"{AB_PAIRS} A/B pairs  [{card}]", flush=True)
+
+        # the CLI's tile mode, once, as a subprocess
+        cpath = os.path.join(tmp, "cli_cache.json")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.tune", "--smoke", "--out",
+             cpath], cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+        row["cli_s"] = time.perf_counter() - t0
+        check(res.returncode == 0,
+              f"{label}: python -m repro_torch.tune --smoke exited "
+              f"{res.returncode}: {res.stderr[-2000:]}")
+        cli = TuneCache.load(cpath)
+        check(len(cli) == 11 and all(k.endswith(":" + CARD_TARGET)
+                                     for k in cli.entries),
+              f"{label}: the CLI's cache {sorted(cli.entries)}")
+        print(f"cli python -m repro_torch.tune --smoke: exit 0, "
+              f"{len(cli)} entries on {CARD_TARGET}, "
+              f"{row['cli_s']:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def precision_phase(dev, card, pol, detail, launches, vgg_params,
+                    vgg_images, gen):
+    """``precision_vgg16_full``: the per-site width search on phase 4's
+    VGG16 on the kernels, its evidence, its ``bfp_packed_v2`` artifact
+    served by a tenant, and reduced VGG16 searched on the card and on the
+    CPU (see the module docstring, phase 13)."""
+    from repro_torch import engine as EG
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import store
+    from repro_torch.engine import PolicyMap
+    from repro_torch.models.cnn import MODELS, head_logits, vgg
+    from repro_torch.serve.tenants import MultiTenantServer, cold_start
+    from repro_torch.tune import search_precision
+
+    label = "precision_vgg16_full"
+    row = detail[label] = {}
+    x8 = vgg_images[:8].to(dev)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = search_precision("vgg16", reduced=False, batch=8,
+                           base_policy=pol, nsr_budget=1e-2, top1_tol=0.25,
+                           params=vgg_params, x=x8)
+    torch.cuda.synchronize()
+    row["search_s"] = time.perf_counter() - t0
+    launches[label] = K.launch_counts()
+    row.update(n_evals=res.n_evals, top1_agreement=res.top1_agreement,
+               assignment=res.assignment)
+    check(len(res.sites) == 16, f"{label}: {len(res.sites)} sites")
+    for s in res.sites:
+        print(f"precision {label} {s.path:<8} {s.kind:<4} l_w={s.l_w} "
+              f"nsr {s.nsr_measured:.4g} (budget 1e-2) fresh "
+              f"{s.nsr_fresh:.4g} <= bound {s.nsr_bound:.4g}", flush=True)
+        check(s.nsr_measured <= 1e-2 and s.nsr_fresh <= s.nsr_bound,
+              f"{label}: site {s.path} nsr {s.nsr_measured} fresh "
+              f"{s.nsr_fresh} bound {s.nsr_bound}")
+    check(res.top1_agreement >= 0.75 and launches[label]["bfp_conv2d"] > 0,
+          f"{label}: agreement {res.top1_agreement}, launches "
+          f"{launches[label]}")
+
+    # the final map's tapped forward: kernels against the plain versions
+    pmap = res.policy_map
+    plain_map = PolicyMap(rules=tuple((r, p.with_(backend="plain"))
+                                      for r, p in pmap.rules),
+                          default=pmap.default.with_(backend="plain"))
+    runs = {}
+    for name, m in (("kernels", pmap), ("plain", plain_map)):
+        evs = []
+        with torch.no_grad(), EG.taps(evs.append):
+            runs[name] = (evs, vgg.apply(vgg_params, x8, m))
+    ek, ep = runs["kernels"][0], runs["plain"][0]
+    check(len(ek) == len(ep) == 16 and all(
+        a.path == b.path and a.backend == "pallas" and b.backend == "plain"
+        and same_bits(a.y, b.y) for a, b in zip(ek, ep)),
+        f"{label}: the map's tapped forward on the kernels differs from "
+        f"the plain versions")
+    direct = head_logits(runs["kernels"][1])
+
+    # the bfp_packed_v2 artifact of the map, served by a tenant
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prec_")
+    try:
+        dv2 = os.path.join(tmp, "vgg16_v2")
+        t0 = time.perf_counter()
+        store.save(dv2, 0, vgg_params, format="bfp_packed_v2", policy=pmap,
+                   tree_kind="cnn")
+        row["save_v2_s"] = time.perf_counter() - t0
+        row["v2_bytes"] = dir_bytes(dv2)
+        fixed = detail["packed"]["packed_vgg16_full"]["packed_bytes"]
+        row["fixed_l_bytes"] = fixed
+        t0 = time.perf_counter()
+        cparams = cold_start("vgg16", dv2, reduced=False, num_classes=1000,
+                             device=dev)
+        row["restore_v2_s"] = time.perf_counter() - t0
+        srv = MultiTenantServer(device=dev)
+        srv.add_tenant("vgg16_v2", "vgg16", params=cparams, policy=pmap,
+                       prequant=False, strict_backend=True, slots=8)
+        reqs = [srv.submit("vgg16_v2", image=vgg_images[i])
+                for i in range(8)]
+        srv.run()
+        served = torch.from_numpy(np.stack([r.logits for r in reqs]))
+        check(all(r.error is None for r in reqs)
+              and torch.equal(served, direct.cpu()),
+              f"{label}: the v2 tenant's logits differ from apply(params, "
+              f"map) (max |diff| {diff(served, direct.cpu())})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"path {label}: {res.n_evals} tapped forwards in "
+          f"{row['search_s']:.2f} s, widths {res.assignment}, top-1 "
+          f"agreement {res.top1_agreement:.3f}; every site's fresh NSR "
+          f"within its bound; the map's forward on the kernels equal to "
+          f"the plain versions at all 16 sites; bfp_packed_v2 "
+          f"{row['v2_bytes']} B against fixed-L bfp_packed {fixed} B "
+          f"({row['v2_bytes'] / fixed:.4f}; saved in {row['save_v2_s']:.2f}"
+          f" s, restored in {row['restore_v2_s']:.2f} s), its tenant's "
+          f"logits equal to apply(params, map)  [{card}]", flush=True)
+
+    # reduced VGG16 searched on the card and on the CPU: the same map
+    rparams = MODELS["vgg16"].init(torch.Generator().manual_seed(5),
+                                   device="cpu")
+    rx = torch.randn((4, 32, 32, 3), generator=torch.Generator()
+                     .manual_seed(6))
+    maps = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        r = search_precision("vgg16", batch=4, base_policy=pol,
+                             nsr_budget=1e-2, top1_tol=0.25,
+                             params=rparams, x=rx, device=d)
+        maps[d] = (r.to_dict(), time.perf_counter() - t0)
+    check(maps["cuda"][0]["policy_map"] == maps["cpu"][0]["policy_map"]
+          and maps["cuda"][0]["n_evals"] == maps["cpu"][0]["n_evals"],
+          f"{label}: reduced VGG16's map on the card "
+          f"{maps['cuda'][0]['policy_map']} != the CPU's "
+          f"{maps['cpu'][0]['policy_map']}")
+    print(f"path precision_vgg16_reduced: card and CPU maps equal "
+          f"({maps['cuda'][0]['n_evals']} evals; card "
+          f"{maps['cuda'][1]:.2f} s, CPU {maps['cpu'][1]:.2f} s)",
+          flush=True)
+
+
+def load_phase(dev, card, detail, launches, r50, gen):
+    """``load_resnet50_full``: phase 8's ResNet-50 plan closed loop, then
+    open loop on wall time at fractions of that capacity, and LeNet's
+    virtual-time row on the card against the CPU's (see the module
+    docstring, phase 13)."""
+    from repro_torch import kernels as K
+    from repro_torch.models.cnn import MODELS, head_logits
+    from repro_torch.serve.cnn import CnnServeEngine, ImageRequest
+    from repro_torch.serve.load import (VirtualClock, poisson_arrivals,
+                                        run_open_loop)
+
+    label = "load_resnet50_full"
+    row = detail[label] = {}
+    plan, apply, imgs = r50["plan"], r50["apply"], r50["images"]
+    fwd = plan.jit_forward(apply)
+    ref = torch.cat([head_logits(fwd(imgs[i:i + 8].to(dev))).cpu()
+                     for i in (0, 8)])
+    # closed loop: 64 requests submitted at once, bucket 8
+    eng = CnnServeEngine(None, apply, plan, slots=8)
+    reqs = [eng.submit(image=imgs[i % 16]) for i in range(64)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    cap = 64 / (time.perf_counter() - t0)
+    check(all(r.error is None for r in reqs), f"{label}: closed loop failed")
+    row["closed_loop_req_per_s"] = cap
+    print(f"time {label}: closed loop 64 requests at batch 8, "
+          f"{cap:.2f} req/s  [{card}]", flush=True)
+
+    K.reset_launch_counts()
+    for name, frac, batching, max_wait in LOAD_RUNS:
+        arrivals = poisson_arrivals(frac * cap, 256, [(1.0, "img", {})],
+                                    seed=7)
+        clock = VirtualClock()
+        eng = CnnServeEngine(None, apply, plan, slots=8, clock=clock,
+                             batching=batching, max_wait=max_wait)
+        done = {}
+
+        def mk(a, done=done):
+            req = ImageRequest(rid=a.rid, image=imgs[a.rid % 16])
+            done[a.rid] = req
+            return req
+
+        rep = run_open_loop(eng, arrivals, mk, clock=clock)
+        r = rep.row()
+        row[name] = r
+        check(rep.completed + rep.shed + rep.expired + rep.failed
+              == rep.offered == 256 and rep.failed == 0,
+              f"{label} {name}: accounting {r}")
+        ok = [q for q in done.values() if q.error is None]
+        check(len(ok) == rep.completed and all(
+            torch.equal(torch.from_numpy(q.logits), ref[q.rid % 16])
+            for q in ok), f"{label} {name}: a completed logit differs "
+                          f"from its image's direct batch-8 forward")
+        print(f"load {label} {name} ({frac} x {cap:.1f} req/s, {batching}"
+              f"{', max_wait %d' % max_wait if batching == 'bucket' else ''}"
+              f"): p50 {rep.p50_ms:.3f} ms p99 {rep.p99_ms:.3f} ms mean "
+              f"{rep.mean_ms:.3f} ms, goodput {rep.goodput_rps:.2f} req/s, "
+              f"completed {rep.completed} shed {rep.shed} expired "
+              f"{rep.expired} failed {rep.failed}, {rep.calls} forwards  "
+              f"[{card}]", flush=True)
+    torch.cuda.synchronize()
+    launches[label] = K.launch_counts()
+    check(launches[label]["bfp_conv2d_prequant"] > 0,
+          f"{label}: no kernel ran: {launches[label]}")
+
+    # LeNet under virtual time: the card's row is the CPU's
+    spec = MODELS["lenet"]
+    lp = spec.init(torch.Generator().manual_seed(3), device="cpu")
+    limgs = torch.randn((4, 28, 28, 1), generator=gen)
+    mix = [(0.5, "a", {}), (0.5, "b", {"deadline": 0.010})]
+    rows = {}
+    for d in ("cuda", "cpu"):
+        for batching in ("continuous", "bucket"):
+            clock = VirtualClock()
+            eng = CnnServeEngine(lp, spec.apply, pol_lenet(), slots=4,
+                                 clock=clock, batching=batching,
+                                 max_queue=3, device=d)
+            arr = poisson_arrivals(3000.0, 60, mix, seed=4)
+            rep = run_open_loop(eng, arr, lambda a: ImageRequest(
+                rid=a.rid, image=limgs[a.rid % 4],
+                deadline=None if a.deadline is None else a.t + a.deadline),
+                clock=clock, call_cost=0.002)
+            rows[d, batching] = rep.row()
+    for batching in ("continuous", "bucket"):
+        check(rows["cuda", batching] == rows["cpu", batching],
+              f"{label}: LeNet's virtual-time row on the card "
+              f"{rows['cuda', batching]} != the CPU's "
+              f"{rows['cpu', batching]}")
+    row["lenet_virtual"] = {b: rows["cuda", b]
+                            for b in ("continuous", "bucket")}
+    print(f"path lenet_virtual_time: rows on the card equal the CPU's "
+          f"(continuous: {rows['cuda', 'continuous']['completed']} "
+          f"completed, {rows['cuda', 'continuous']['shed']} shed, "
+          f"{rows['cuda', 'continuous']['expired']} expired; bucket: "
+          f"{rows['cuda', 'bucket']['completed']} / "
+          f"{rows['cuda', 'bucket']['shed']} / "
+          f"{rows['cuda', 'bucket']['expired']})", flush=True)
+
+
+def pol_lenet():
+    """LeNet's kernel policy: PALLAS_TILED at block 16 (c2's K = 400 and
+    fc1's 1568 are multiples), strict round to nearest."""
+    from repro_torch.core.policy import PALLAS_TILED
+    return PALLAS_TILED.with_(block_k=16, straight_through=False)
 
 
 def main() -> int:
@@ -2042,16 +2448,8 @@ def main() -> int:
         return steps
 
     def same(a, b):
-        if isinstance(a, dict):
-            return (isinstance(b, dict) and torch.equal(a["m"], b["m"])
-                    and torch.equal(a["s"], b["s"]))
-        return torch.equal(a, b)
-
-    def max_diff(a, b):
-        if isinstance(a, dict):
-            return max((a["m"].float() - b["m"].float()).abs().max().item(),
-                       (a["s"] - b["s"]).abs().max().item())
-        return (a - b).abs().max().item()
+        return (isinstance(a, dict) == isinstance(b, dict)
+                and same_tree(a, b, nan_aware=False))
 
     def kernel_of(p, name, x):
         w = p.params[name]["w"]
@@ -2080,7 +2478,7 @@ def main() -> int:
                 for (name, x, y, opol), (_, _, py, _) in zip(
                         steps, run_chain(pplan, stage)):
                     kname = kernel_of(kplan, name, x)
-                    errs[kname] = max(errs.get(kname, 0.0), max_diff(y, py))
+                    errs[kname] = max(errs.get(kname, 0.0), tree_diff(y, py))
                     check(same(y, py), f"{label} {name}: {kname} differs "
                                        f"from the plain-version chain")
                     # (b) the epilogue == the two-step route
@@ -2567,7 +2965,16 @@ def main() -> int:
     # -- 12. BFP training ----------------------------------------------------
     train_phase(dev, card, pol, detail, launches, full_params, gen)
 
-    # -- 13. results ---------------------------------------------------------
+    # -- 13. tuned serving, the precision search, open-loop load -----------
+    t13 = time.perf_counter()
+    tuned_phase(dev, card, pol, detail, launches, full_params, images,
+                served_logits[full_p], launches[full_p], gen)
+    precision_phase(dev, card, pol, detail, launches, full_params, images,
+                    gen)
+    load_phase(dev, card, detail, launches, models["resnet50_full"], gen)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+
+    # -- 14. results ---------------------------------------------------------
     kernels = []
     for name in SOURCES:
         path = next(p for p in launches if launches[p][name] > 0)

@@ -73,8 +73,10 @@ def quantize_activations(x2d: torch.Tensor, policy: BFPPolicy,
 
 
 def _exact_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Integer-valued a @ b (batched or not), exact, rounded once to f32."""
-    return torch.matmul(a.double(), b.double()).float()
+    """Integer-valued a @ b (batched or not), exact, rounded once to f32.
+    ``+ 0.0`` turns the -0.0 of a single product 0 * -m into +0.0, the
+    zero of ``repro``'s int32 dot, and changes no other value."""
+    return torch.matmul(a.double(), b.double()).float() + 0.0
 
 
 def _int_matmul(mx: torch.Tensor, mw: torch.Tensor,

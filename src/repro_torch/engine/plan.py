@@ -26,9 +26,15 @@ require grad takes the autograd route with the site's bound specs.
 ``model_paths=`` restricts the bound sites to an explicit list (and
 scopes prequantization to it) and binds policy-only entries for paths
 the walk cannot see, as ``repro``'s ``bind`` does.
+
+``tune_cache=`` attaches a :class:`repro_torch.tune.TuneCache` (or a
+path): the plan activates it around every bound execution, so each
+kernel launches with its site's tuned tile (``kernels.ops``); the
+cache's ``hits`` / ``misses`` count those lookups.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import types
 from typing import Any, Dict, Iterable, Optional, Tuple, Union
@@ -96,13 +102,18 @@ class Plan:
 
     def __init__(self, sites: Dict[str, Site], params: Any,
                  policy: PolicyLike, strict: bool = False,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 tune_cache: Any = None):
         self._sites = dict(sites)
         self.sites = types.MappingProxyType(self._sites)
         self.params = params
         self.policy = policy
         self.strict = strict
         self.device = device
+        #: TuneCache attached at bind time: every bound execution runs
+        #: with it active, so kernels launch with the tuned tiles of their
+        #: (shape, L, target) site
+        self.tune_cache = tune_cache
         #: per-plan forwards keyed by apply function (see jit_forward)
         self._fwd_cache: Dict[Any, Any] = {}
         #: downgrades already warned on unbound paths of this plan
@@ -123,6 +134,13 @@ class Plan:
             return s.policy
         return resolve_policy(self.policy, path)
 
+    def _tuned(self):
+        """Context activating this plan's tune cache (no-op when none)."""
+        if self.tune_cache is None:
+            return contextlib.nullcontext()
+        from repro_torch.tune.cache import use_cache
+        return use_cache(self.tune_cache)
+
     def out_policy_for(self, path: Optional[str]) -> Optional[BFPPolicy]:
         """The resolved policy for ``path`` IF its execution would
         quantize its input to the activation wire format — the
@@ -140,6 +158,12 @@ class Plan:
 
     def gemm(self, x: Any, w: Any, *, path: Optional[str] = None,
              out_policy=None, noise=None) -> Any:
+        if self.tune_cache is not None:
+            with self._tuned():
+                return self._gemm(x, w, path, out_policy, noise)
+        return self._gemm(x, w, path, out_policy, noise)
+
+    def _gemm(self, x, w, path, out_policy, noise):
         site = self._sites.get(path)
         routed = _routed(x, w, noise, out_policy)
         if site is not None and site.kind == "gemm":
@@ -159,6 +183,13 @@ class Plan:
     def conv2d(self, x: Any, w: Any, *, path: Optional[str] = None,
                stride: int = 1, padding: str = "SAME",
                out_policy=None, noise=None) -> Any:
+        if self.tune_cache is not None:
+            with self._tuned():
+                return self._conv2d(x, w, path, stride, padding, out_policy,
+                                    noise)
+        return self._conv2d(x, w, path, stride, padding, out_policy, noise)
+
+    def _conv2d(self, x, w, path, stride, padding, out_policy, noise):
         site = self._sites.get(path)
         routed = _routed(x, w, noise, out_policy, padding)
         if site is not None and site.kind == "conv":
@@ -181,11 +212,13 @@ class Plan:
         and model shares one object.  PyTorch runs eagerly, so nothing is
         traced: the callable runs under ``torch.inference_mode()`` with
         tap events suppressed, as ``repro``'s compiled forward emits
-        none (call ``apply_fn`` itself to observe the sites)."""
+        none (call ``apply_fn`` itself to observe the sites), and with
+        the plan's tune cache active."""
         fn = self._fwd_cache.get(apply_fn)
         if fn is None:
             def fwd(x, *args, _apply=apply_fn):
-                with torch.inference_mode(), TAPS.suppressed():
+                with torch.inference_mode(), TAPS.suppressed(), \
+                        self._tuned():
                     return _apply(self.params, x, self, *args)
             fn = fwd
             self._fwd_cache[apply_fn] = fn
@@ -284,7 +317,8 @@ def _discover_sites(params: Any):
 def bind(params: Any, policy: PolicyLike,
          model_paths: Optional[Iterable[Union[str, Tuple[str, str]]]] = None,
          *, tree: str = "auto", strict: bool = False,
-         prequantize: bool = True, device: DeviceLike = "cuda") -> Plan:
+         prequantize: bool = True, device: DeviceLike = "cuda",
+         tune_cache: Any = None) -> Plan:
     """Bind ``policy`` to a CNN's parameters: one walk, one Plan.
 
     Args:
@@ -305,6 +339,11 @@ def bind(params: Any, policy: PolicyLike,
       prequantize: convert eligible weight leaves to the wire format.
       device: where the plan's params live (default "cuda"; raises when
         CUDA is absent unless the caller passes "cpu").
+      tune_cache: a :class:`repro_torch.tune.TuneCache` (or a path:
+        loaded here, a missing file is an empty cache) of tuned tiles;
+        the plan activates it around every bound execution.  Entries of
+        the CPU (``"interpret"``) and of the card
+        (``tune.cache.CARD_TARGET``) each apply only on their own device.
 
     Raises KeyError for policies naming unknown backends, and (under
     ``strict``) :class:`BackendUnsupportedError` when a requested backend
@@ -312,6 +351,9 @@ def bind(params: Any, policy: PolicyLike,
     """
     dev = resolve_device(device)
     _validate_policy_backends(policy)
+    if isinstance(tune_cache, str):
+        from repro_torch.tune.cache import TuneCache
+        tune_cache = TuneCache.load(tune_cache)
     # packed artifacts (checkpoint restore(packed="keep")) unpack straight
     # into {"m", "s"} sidecars on the plan's device — never through float
     params = unpack_packed(params, dev)
@@ -374,4 +416,5 @@ def bind(params: Any, policy: PolicyLike,
     for path, skind in (wanted or {}).items():
         if path not in sites:   # policy-only entries for unseen paths
             sites[path] = site(path, skind or "gemm", None, False)
-    return Plan(sites, qparams, policy, strict, device=dev)
+    return Plan(sites, qparams, policy, strict, device=dev,
+                tune_cache=tune_cache)

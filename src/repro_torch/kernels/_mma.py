@@ -2,7 +2,8 @@
 by the conv and matmul wrappers.
 
 Which calls take the core (:func:`mma_core`, :func:`patch_core`), which
-of its tiles a call runs (:func:`mma_tile`), the patch-matrix geometry
+of its tiles a call runs (:func:`mma_tile`, or a tuned tile forced by
+:func:`forced_tile`: :func:`pick_tile`), the patch-matrix geometry
 of the inline route (:class:`_Patch`), the launches of the inline route
 (:func:`_launch_patch`) and of the wire route (:func:`_launch_mma`: x on
 the wire or formatted to it, w prequant or formatted by the weight
@@ -86,6 +87,54 @@ def patch_core(bk: int, n: int, out_bits: Optional[int], l_i: int,
     mantissas int8 (L <= 8) and no condition on C: the patch blocks need
     not line up with channel chunks."""
     return _mma_block(bk, n, out_bits, out_block) and l_i <= 8 and l_w <= 8
+
+
+#: the tile kernel's (rows, columns) tile, fixed at compile time
+#: (``bfp_tile.cuh`` BM; BN, which is EPI_COLS with the epilogue)
+TILE_KERNEL_TILE = (64, 64)
+TILE_KERNEL_EPI_TILE = (64, 128)
+
+
+def tile_kernel_tile(out_bits: Optional[int]) -> tuple:
+    """The tile kernel's one tile, without or with the epilogue."""
+    return TILE_KERNEL_TILE if out_bits is None else TILE_KERNEL_EPI_TILE
+
+
+def tile_index(tile, bk: int) -> int:
+    """The :data:`MMA_TILES` index of a (bm, bn) tile that the core can
+    run at block ``bk`` (its stages fit in shared memory); anything else
+    raises ``ValueError``."""
+    tile = tuple(tile)
+    if tile not in MMA_TILES:
+        raise ValueError(f"tile {tile} is not one of the mma core's tiles "
+                         f"MMA_TILES = {MMA_TILES}")
+    if _mma_smem(*tile, bk) > _SMEM:
+        raise ValueError(f"tile {tile} of MMA_TILES does not fit the mma "
+                         f"core's shared memory at bk={bk}")
+    return MMA_TILES.index(tile)
+
+
+#: the MMA_TILES index forced on the calls inside :func:`forced_tile`
+#: (``kernels.ops`` sets it from an explicit or tuned tile), else None
+_FORCED: Optional[int] = None
+
+
+@contextlib.contextmanager
+def forced_tile(index: Optional[int]):
+    """Run the mma core's launches inside on tile ``index`` instead of
+    :func:`mma_tile`'s choice (None: the rule chooses).  The bits do not
+    depend on the tile."""
+    global _FORCED
+    prev, _FORCED = _FORCED, index
+    try:
+        yield
+    finally:
+        _FORCED = prev
+
+
+def pick_tile(m: int, n: int, bk: int) -> int:
+    """The tile a launch runs: the forced one, else :func:`mma_tile`'s."""
+    return mma_tile(m, n, bk) if _FORCED is None else _FORCED
 
 
 @functools.lru_cache(maxsize=1024)
@@ -275,7 +324,7 @@ def _launch_patch(x: torch.Tensor, w: torch.Tensor, l_i: int, l_w: int,
                     x.data_ptr(), w.data_ptr(), *ptrs, out.data_ptr(),
                     _ptr(om), _ptr(os_), row0, rows, int(row0 == 0),
                     *geo.dims, bk, l_i, l_w, out_bits or 0, out_block or 0,
-                    mma_tile(rows, oc, bk), _stream(dev)), family)
+                    pick_tile(rows, oc, bk), _stream(dev)), family)
                 _count(counters, family, family, out_bits, "_pformat",
                        layer=layer and row0 == 0)
     return out if out_bits is None else (om, os_)
@@ -331,7 +380,7 @@ def _launch_mma(xm, xs, wm, ws, bk: int, stride: int, padding: str,
                 wm.data_ptr(), ws.data_ptr(), out.data_ptr(), _ptr(om),
                 _ptr(os_), b, h, wd, c, kh, kw, oc, stride, oh, ow, pt, pl,
                 bk, l_i, l_w, out_bits or 0, out_block or 0,
-                mma_tile(rows, oc, bk), _stream(dev)), name)
+                pick_tile(rows, oc, bk), _stream(dev)), name)
         _count(counters, family, name, out_bits, *passes, layer=layer)
     return out if out_bits is None else (om, os_)
 

@@ -61,7 +61,8 @@ __all__ = ["bfp_matmul", "bfp_matmul_prequant", "bfp_matmul_xprequant",
            "bfp_matmul_xwprequant", "bfp_matmul_plain",
            "bfp_matmul_prequant_plain", "bfp_matmul_xprequant_plain",
            "bfp_matmul_xwprequant_plain", "requant_plain", "check_overflow",
-           "check_epilogue", "matmul_core", "EPILOGUE_COLS", "LAUNCHES"]
+           "check_epilogue", "matmul_core", "f32_dot_exact",
+           "resolve_dot_impl", "EPILOGUE_COLS", "LAUNCHES"]
 
 #: kernel launches per wrapper, incremented only where a kernel launches;
 #: ``bfp_matmul_epilogue`` counts the calls that ran the requantize
@@ -179,13 +180,50 @@ def requant_plain(out: torch.Tensor, bits: int,
             step.reshape(*lead, n // block))
 
 
+def f32_dot_exact(l_i: int, l_w: int, bk: int) -> bool:
+    """True when an f32 dot over ``bk``-long int-mantissa products is
+    bit-identical to int32 accumulation: every product and partial sum
+    is an integer of magnitude <= 2^24 (``repro``'s predicate)."""
+    return bk * (2 ** (l_i - 1) - 1) * (2 ** (l_w - 1) - 1) \
+        <= _F32_EXACT_BOUND
+
+
+def resolve_dot_impl(dot_impl: str, *, l_i: int, l_w: int, bk: int,
+                     interpret: bool, x_pq: bool = False,
+                     w_pq: bool = False) -> str:
+    """``repro``'s dot-mode rule: resolve ``"auto"`` and validate an
+    explicit ``"int8"`` / ``"int32"`` / ``"f32"``, raising where
+    ``repro``'s raises (``"int8"`` with an inline L > 8, ``"f32"`` past
+    the 2^24 bound, an unknown name).  Wire operands arrive as int8
+    mantissas, so their L never forces int32.  ``repro`` pins every mode
+    bit-identical; the port runs one datapath per core whatever the mode,
+    so ``kernels.ops`` only validates it here."""
+    li_eff = min(l_i, 8) if x_pq else l_i
+    lw_eff = min(l_w, 8) if w_pq else l_w
+    if dot_impl == "auto":
+        if max(li_eff, lw_eff) > 8:
+            return "int32"
+        if interpret:
+            return "f32" if f32_dot_exact(li_eff, lw_eff, bk) else "int32"
+        return "int8"
+    if dot_impl == "int8" and max(li_eff, lw_eff) > 8:
+        raise ValueError(f"dot_impl='int8' needs inline L <= 8, got "
+                         f"L_I={l_i}, L_W={l_w}")
+    if dot_impl == "f32" and not f32_dot_exact(li_eff, lw_eff, bk):
+        raise ValueError(f"dot_impl='f32' not exact for L_I={l_i}, "
+                         f"L_W={l_w}, bk={bk} (bound 2^24)")
+    if dot_impl not in ("int8", "int32", "f32"):
+        raise ValueError(f"unknown dot_impl {dot_impl!r}")
+    return dot_impl
+
+
 def _tile_dots(mx: torch.Tensor, mw: torch.Tensor, l_i: int, l_w: int,
                bk: int) -> torch.Tensor:
     """[n_k, B, bk] @ [n_k, bk, N] integer mantissas -> exact partials,
     rounded once to f32.  An f32 product is exact while every partial
     sum stays within 2^24 (and TF32 is off); beyond that f64 is exact
     for any tile the int32 overflow guard admits."""
-    if bk * (2 ** (l_i - 1) - 1) * (2 ** (l_w - 1) - 1) <= _F32_EXACT_BOUND:
+    if f32_dot_exact(l_i, l_w, bk):
         return torch.matmul(mx, mw)
     return torch.matmul(mx.double(), mw.double()).float()
 
@@ -368,7 +406,7 @@ def _launch_mma(x: torch.Tensor, wm: torch.Tensor, ws: torch.Tensor,
                     om.data_ptr() + row0 * n if om is not None else None,
                     os_.data_ptr() + 4 * row0 * n_ob if om is not None
                     else None, r, n, k, bk, l_i, out_bits or 0,
-                    out_block or 0, _mma.mma_tile(r, n, bk),
+                    out_block or 0, _mma.pick_tile(r, n, bk),
                     _mma._stream(dev)), "bfp_matmul_prequant")
                 _mma._count(LAUNCHES, "bfp_matmul", "bfp_matmul_prequant",
                             out_bits, "_xformat", layer=row0 == 0)

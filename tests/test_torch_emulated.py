@@ -279,3 +279,50 @@ def test_engine_passes_stochastic_noise_to_the_emulated_backend(refs):
     got = EG.gemm(t(x), {"m": t(side["m"]), "s": t(side["s"])}, pol,
                   noise=t(noise))
     assert_bits_equal(got, want)
+
+
+# F5: a contraction of length 1 (one product per output) where a zero
+# mantissa meets a negative one: repro's int32 dot gives +0.0
+K1_SCHEMES = [(s, l) for s in Scheme for l in (4, 8)]
+
+
+def _k1_operands():
+    x = normal((6, 1), seed=41)
+    x[::2] = 0.0                                  # zero rows -> 0 * w
+    w = -np.abs(normal((1, 5), seed=42, scale=0.1))   # negative weights
+    xc = normal((2, 4, 3, 1), seed=43)
+    xc[:, ::2] = 0.0
+    wc = -np.abs(normal((1, 1, 1, 4), seed=44, scale=0.1))
+    return x, w, xc, wc
+
+
+@pytest.fixture(scope="module")
+def k1_refs():
+    x, w, xc, wc = _k1_operands()
+
+    def ref_fn(x, w, xc, wc):
+        out = []
+        for s, l in K1_SCHEMES:
+            pol = _policy(JPolicy, s, Rounding.ROUND, l,
+                          1 if s is Scheme.TILED else None)
+            out.append((JEG.gemm(x, w, pol), JEG.conv2d(xc, wc, pol)))
+        return out
+
+    return to_numpy_tree(jax.jit(ref_fn)(x, w, xc, wc))
+
+
+@pytest.mark.parametrize("i", range(len(K1_SCHEMES)),
+                         ids=[f"{s.value}-L{l}" for s, l in K1_SCHEMES])
+def test_contraction_of_one_gives_positive_zeros(k1_refs, i):
+    """``engine.gemm`` with K = 1 and a 1x1 conv over one channel: the
+    zeros are +0.0, bit-equal to ``repro`` (F5)."""
+    x, w, xc, wc = _k1_operands()
+    s, l = K1_SCHEMES[i]
+    pol = _policy(BFPPolicy, s, Rounding.ROUND, l,
+                  1 if s is Scheme.TILED else None)
+    want_g, want_c = k1_refs[i]
+    got_g = EG.gemm(t(x), t(w), pol)
+    got_c = EG.conv2d(t(xc), t(wc), pol)
+    assert (want_g == 0).any() and not np.signbit(want_g[want_g == 0]).any()
+    assert_bits_equal(got_g, want_g)
+    assert_bits_equal(got_c, want_c)

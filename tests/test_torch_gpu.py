@@ -890,3 +890,88 @@ def test_cuda_train_step_matches_the_cpu(cuda):
     for u, v in zip(_tree.flatten(b.params)[0], _tree.flatten(a.params)[0]):
         assert _far_share(u.cpu(), v) <= 0.01
         assert float((u.cpu() - v).abs().max()) <= 2.5 * cfg.lr
+
+
+@pytest.mark.gpu
+def test_cuda_every_mma_tile_gives_the_same_bits(cuda):
+    """A tuned or explicit tile (``tiles=``) forces one of ``MMA_TILES`` on
+    the mma core's launches: every tile that fits the block gives the
+    rule's bits, the plain version's; one that does not fit, one that is
+    not a core tile, and any but the tile kernel's own on a call routed
+    there raise."""
+    from repro_torch.kernels import _mma
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((100, 1024), generator=g).to(cuda)
+    w = (0.1 * torch.randn((1024, 64), generator=g)).to(cuda)
+    xc = torch.randn((2, 14, 14, 512), generator=g).to(cuda)
+    wc = (0.05 * torch.randn((3, 3, 512, 96), generator=g)).to(cuda)
+    for bk in (128, 512):
+        pol = TPU_TILED.with_(block_k=bk)
+        wq = prequant_leaf(w, pol)
+        wcq = prequant_conv_leaf(wc, pol)
+        calls = {
+            "matmul": lambda **kw: ops.bfp_matmul(x, w, pol, **kw),
+            "matmul_prequant": lambda **kw: ops.bfp_matmul_prequant(
+                x, wq["m"], wq["s"], pol, **kw),
+            "conv": lambda **kw: ops.bfp_conv2d(xc, wc, pol, **kw),
+            "conv_prequant": lambda **kw: ops.bfp_conv2d_prequant(
+                xc, wcq["m"], wcq["s"], pol, **kw)}
+        plain = {"matmul": KM.bfp_matmul_plain(x, w, 8, 8, bk),
+                 "conv": KC.bfp_conv2d_plain(xc, wc, 8, 8, bk)}
+        for name, call in calls.items():
+            want = call()
+            assert torch.equal(want, plain[name.split("_")[0]]), name
+            for tile in _mma.MMA_TILES:
+                bk_t = (bk,) if name.startswith("matmul") else ()
+                if _mma._mma_smem(*tile, bk) > _mma._SMEM:
+                    with pytest.raises(ValueError, match="shared memory"):
+                        call(tiles=(*tile, *bk_t))
+                    continue
+                K.reset_launch_counts()
+                got = call(tiles=(*tile, *bk_t))
+                assert torch.equal(got, want), (name, bk, tile)
+                assert sum(K.launch_counts().values()) >= 1
+            with pytest.raises(ValueError, match="MMA_TILES"):
+                call(tiles=(48, 64, bk))
+    # L = 9 routes the inline conv to the tile kernel: only its tile
+    pol9 = TPU_TILED.with_(block_k=128, l_i=9, l_w=9)
+    want = ops.bfp_conv2d(xc, wc, pol9)
+    assert torch.equal(ops.bfp_conv2d(xc, wc, pol9, tiles=(64, 64)), want)
+    with pytest.raises(ValueError, match="MMA_TILES"):
+        ops.bfp_conv2d(xc, wc, pol9, tiles=(32, 64))
+
+
+@pytest.mark.gpu
+def test_cuda_bound_plan_with_a_tuned_cache_hits_on_every_site(cuda):
+    """``tune_plan`` on the card stores entries under the card's target;
+    a plan bound with the cache hits on every site of every served
+    forward (no miss) and serves the untuned plan's logits."""
+    from repro_torch.tune import CARD_TARGET, TuneCache
+    from repro_torch.tune.autotune import tune_plan
+
+    params = MODELS["vgg16"].init(torch.Generator().manual_seed(1),
+                                  device="cpu")
+    pol = PALLAS_TILED.with_(straight_through=False)
+    images = t(normal((8, 32, 32, 3), seed=4)).to(cuda)
+    plan = EG.bind(params, pol, tree="cnn", strict=True, device=cuda)
+    cache = TuneCache()
+    ents = tune_plan(plan, vgg.apply, images, cache=cache, max_steps=4,
+                     iters=2)
+    # sites of one shape share one entry (one key)
+    assert len(ents) == 16 and 1 <= len(cache) <= 16
+    assert all(k.endswith(":" + CARD_TARGET) for k in cache.entries)
+    assert all({"bm", "bn", "bk", "us", "steps"} <= set(e)
+               for e in ents.values())
+    tuned = EG.bind(params, pol, tree="cnn", strict=True, device=cuda,
+                    tune_cache=cache)
+    cache.hits = cache.misses = 0
+    logits = {}
+    for name, p in (("untuned", plan), ("tuned", tuned)):
+        eng = CnnServeEngine(None, vgg.apply, p, slots=8, device=cuda)
+        reqs = [eng.submit(image=images[i]) for i in range(8)]
+        eng.run()
+        logits[name] = torch.stack([torch.from_numpy(r.logits)
+                                    for r in reqs])
+    assert (cache.hits, cache.misses) == (16 * eng.ncalls, 0)
+    assert torch.equal(logits["tuned"], logits["untuned"])

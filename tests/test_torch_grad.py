@@ -637,3 +637,54 @@ def test_ragged_block_linearizes_at_the_kernels_blocks():
         assert_bits_equal(e.y, KM.bfp_matmul_plain(
             e.x, e.w, 8, 8, e.policy.block_k).numpy())
     assert torch.isfinite(xc.grad).all() and torch.isfinite(wc.grad).all()
+
+
+# F5: backward GEMMs whose contraction has length 1 — a GEMM's #dx when
+# N = 1, its #dw when the batch is 1.  Zero mantissas meet negative ones,
+# so a float64 dot would give -0.0; repro's emulated int32 dot gives +0.0.
+# The kernel backend is held against repro's emulated route here, not its
+# Pallas matmul.
+def _len1_operands():
+    xn = normal((4, 32), seed=61)
+    wn = -np.abs(normal((32, 1), seed=62, scale=0.1))
+    wn[::3] = 0.0
+    gn = normal((4, 1), seed=63)
+    gn[1] = 0.0
+    xb = normal((1, 32), seed=64)
+    xb[0, ::2] = 0.0
+    wb = normal((32, 8), seed=65, scale=0.1)
+    gb = -np.abs(normal((1, 8), seed=66))
+    return {"n1": (xn, wn, gn), "b1": (xb, wb, gb)}
+
+
+LEN1_POLS = {"eq4": EQ4, "tiled": TILED32,
+             "kernel": (TILED32[0], KERNEL32[1])}
+
+
+@pytest.fixture(scope="module")
+def len1_ref():
+    ops = _len1_operands()
+
+    def fn():
+        out = {}
+        for pk, pol in LEN1_POLS.items():
+            for sk, (x, w, g) in ops.items():
+                out[pk, sk] = jax.grad(lambda x, w: jnp.sum(
+                    JEG.gemm(x, w, pol[0], path="fc") * g), (0, 1))(x, w)
+        return out
+
+    return to_numpy_tree(jax.jit(fn)())
+
+
+@pytest.mark.parametrize("shape", ["n1", "b1"])
+@pytest.mark.parametrize("pk", list(LEN1_POLS))
+def test_backward_of_contraction_one_gives_positive_zeros(len1_ref, pk,
+                                                          shape):
+    x, w, g = _len1_operands()[shape]
+    _, dx, dw = _grads(lambda a, b: EG.gemm(a, b, LEN1_POLS[pk][1],
+                                            path="fc"), x, w, g)
+    want_dx, want_dw = len1_ref[pk, shape]
+    want = want_dx if shape == "n1" else want_dw
+    assert (want == 0).any() and not np.signbit(want[want == 0]).any()
+    assert_bits_equal(dx, want_dx)
+    assert_bits_equal(dw, want_dw)

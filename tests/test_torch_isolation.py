@@ -139,3 +139,45 @@ def test_training_entry_points_need_cuda_unless_asked(monkeypatch):
     new, metrics = TC.make_cnn_train_step(cfg)(state, (x, y))
     assert int(new.step) == 1 and np.isfinite(float(metrics["loss"]))
     assert compress.unpack_leaf(wire, "cpu").shape == (3, 5)
+
+
+def test_tune_entry_points_need_cuda_unless_asked(monkeypatch, tmp_path):
+    """The tune slice (tile tuner, precision search, its CLI) and the
+    load driver's engine default to the card and raise without it."""
+    from repro_torch.core.policy import TPU_TILED
+    from repro_torch.tune import (TuneCache, search_precision, time_us,
+                                  tune_conv, tune_gemm)
+    from repro_torch.tune import __main__ as tune_cli
+
+    assert {"tune"} <= {f.parent.name for f in _port_files()}
+    assert any(f.name == "load.py" and f.parent.name == "serve"
+               for f in _port_files())
+    pol = TPU_TILED.with_(block_k=16)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: search_precision("lenet", batch=2),
+                 lambda: tune_gemm(8, 32, 8, pol, cache=TuneCache()),
+                 lambda: tune_conv(1, 4, 4, 2, 3, 4, pol,
+                                   cache=TuneCache()),
+                 lambda: time_us(lambda: None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    for argv in (["--smoke", "--out", str(tmp_path / "c.json")],
+                 ["--precision", "--model", "lenet", "--batch", "2"]):
+        monkeypatch.setattr("sys.argv", ["repro_torch.tune", *argv])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tune_cli.main()
+    assert not (tmp_path / "c.json").exists()
+    # asked for explicitly, the CPU tunes and searches
+    cache = TuneCache()
+    ent = tune_gemm(8, 32, 8, pol, cache=cache, max_steps=2, iters=1,
+                    device="cpu")
+    assert ent["bk"] == 16 and len(cache) == 1
+    res = search_precision("lenet", batch=2, nsr_budget=1e-2,
+                           device="cpu")
+    assert res.sites
+    monkeypatch.setattr("sys.argv", [
+        "repro_torch.tune", "--precision", "--model", "lenet", "--batch",
+        "2", "--device", "cpu", "--policy-out", str(tmp_path / "p.json"),
+        "--checkpoint-out", str(tmp_path / "ckpt")])
+    tune_cli.main()
+    assert (tmp_path / "p.json").exists() and (tmp_path / "ckpt").exists()
