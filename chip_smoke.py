@@ -188,7 +188,31 @@ raises (and so exits non-zero) when it fails:
    completed logit ``torch.equal`` to its image's direct batch-8
    forward; LeNet's virtual-time rows (``call_cost``) on the card equal
    to the CPU's for the same trace, with deadlines and shedding;
-14. a JSON line of per-kernel numbers, then the result line
+14. the LM serving path (``serve.engine``, ``models.lm``).
+   ``lm_tinyllama_full``: TinyLlama-1.1B at its published configuration
+   (22 layers, d_model 2048, 32 heads, GQA kv 4, head_dim 64, d_ff 5632,
+   vocab 32,000), seeded on the card, served by ``ServeEngine`` at
+   ``PALLAS_TILED`` (block 128, L = 8; strict, weights prequantized at
+   admission), 4 slots, a 256-position cache, prefill chunks of 8, 8
+   requests (prompt lengths 8-64 and tokens from ``--seed``, 32 new
+   tokens each), continuous batching: no failure and no float retry,
+   and 155 ``bfp_matmul_prequant`` and 155 ``bfp_matmul_xformat``
+   launches per ``decode_step`` call (7 linears of 22 layers and
+   ``lm_head``), every other counter 0.  Every request served alone on a
+   fresh engine of the same geometry gives its batched tokens; bucket
+   batching gives continuous' tokens; four decode steps from one fresh
+   cache on the kernels are ``torch.equal`` to the same steps through
+   the plain versions (logits and bf16 caches).  Then the median
+   decode-step time (CUDA events), one step profiled (device ms by
+   family beside the kernel GEMMs' bound), tokens/s, init and
+   bind + prequant seconds, peak memory.  ``lm_olmoe_width``: OLMoE-1B-7B
+   at published width (64 experts top-8, d_ff 1024, vocab 50,304) at 4
+   of its 16 layers and capacity factor 64 (no token dropped: see
+   ``LM_PATHS``), 4 requests of 8 new tokens, the same checks, 17
+   launches per call (the router in float, the experts on the emulated
+   datapath).  The LM serve CLI (``repro_torch.launch.serve``, smoke
+   scale) once as a subprocess, exiting 0;
+15. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
@@ -1640,6 +1664,307 @@ def load_phase(dev, card, detail, launches, r50, gen):
           f"{rows['cuda', 'bucket']['expired']})", flush=True)
 
 
+#: phase 14's LM paths: (label, arch, layers kept (None: the published
+#: depth), requests, max_new).  Every path serves with 4 slots, a cache
+#: of 256 positions and prefill chunks of 8 (continuous batching), on
+#: PALLAS_TILED (block 128, L = 8), weights prequantized at admission.
+#: OLMoE keeps 4 of its 16 layers (run time) and serves with capacity
+#: factor 64 (no token is dropped): at the published 1.25 and 4 slots an
+#: expert takes 1 token per call, so whether a request's token is dropped
+#: would depend on its neighbours, and solo serving could not equal
+#: batched serving (the reference's own equivalence tests lift the
+#: capacity the same way, ``tests/test_models_lm.py``).
+LM_PATHS = (("lm_tinyllama_full", "tinyllama-1.1b", None, 8, 32),
+            ("lm_olmoe_width", "olmoe-1b-7b", 4, 4, 8))
+#: the LM serve CLI runs of phase 14 (each a subprocess, on the card)
+LM_CLI_RUNS = (("--arch", "tinyllama-1.1b", "--scale", "smoke",
+                "--requests", "2", "--max-new", "4", "--bfp",
+                "--bfp-weights"),)
+#: decode steps timed one by one (CUDA events) for the median
+LM_TIMED_STEPS = 20
+
+
+def lm_launches_per_call(cfg) -> int:
+    """``bfp_matmul_prequant`` (and ``bfp_matmul_xformat``) launches per
+    ``decode_step``: every linear of a layer (7; 4 with MoE, whose expert
+    GEMMs run the emulated datapath) and ``lm_head``, each prequantized
+    (block 128 divides every K, N % 4 == 0) on the mma core after one
+    activation format pass."""
+    return cfg.n_layers * (4 if cfg.is_moe else 7) + 1
+
+
+def lm_bound(plan, m: int):
+    """(bound_ms, bound_by, bytes, ops) of one decode step's kernel
+    GEMMs at M = ``m`` rows: the int8 weights, f32 steps, x and output
+    read or written once against the HBM rate, 2*M*N*K int8 operations
+    against the int8 peak (the MoE experts run no kernel)."""
+    from repro_torch import _tree
+    from repro_torch.core.prequant import is_prequant, lm_eligible
+
+    nbytes = ops = 0
+    for path, leaf in _tree.leaves_with_path(plan.params,
+                                             is_leaf=is_prequant):
+        keys = [str(k) for k in path]
+        if not is_prequant(leaf) or not lm_eligible(keys) or "moe" in keys:
+            continue
+        wm, ws = leaf["m"], leaf["s"]
+        k, n = wm.shape[-2:]
+        mats = wm.numel() // (k * n)
+        nbytes += wm.numel() * wm.element_size() + ws.numel() * 4 + \
+            mats * m * (k + n) * 4
+        ops += 2 * m * k * n * mats
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            ) + (nbytes, ops)
+
+
+def lm_path(label, cfg, n_req, max_new, dev, card, seed, detail,
+            launches):
+    """One LM path of phase 14 (see the module docstring)."""
+    import statistics
+
+    from repro_torch import engine as EG
+    from repro_torch import kernels as K
+    from repro_torch.core.policy import PALLAS_TILED
+    from repro_torch.models.lm import model as LM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    sync = torch.cuda.synchronize
+    row = detail[label] = {}
+    pol = PALLAS_TILED.with_(straight_through=False)
+    geometry = dict(slots=4, max_len=256, prefill_chunk=8, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    sync()
+    row["init_s"] = time.perf_counter() - t0
+    row["params"] = LM.param_count(params)
+    t0 = time.perf_counter()
+    eng = ServeEngine(params, cfg, policy=pol, prequant=pol,
+                      strict_backend=True, **geometry)
+    sync()
+    row["bind_prequant_s"] = time.perf_counter() - t0
+    del params            # the engine holds the prequantized tree
+    qparams = eng.params
+    sites = eng.plan.sites
+    check(all(s.prequantized and s.backend.name == "pallas"
+              and not s.fallback for s in sites.values()),
+          f"{label}: a site is not prequantized on the kernels: "
+          f"{eng.plan.describe()}")
+    g = torch.Generator().manual_seed(seed + 1)
+    lens = torch.randint(8, 65, (n_req,), generator=g).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in lens]
+
+    def serve(engine, tag):
+        reqs = [Request(rid=i, prompt=list(p), max_new=max_new)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        sync()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        engine.run()
+        sync()
+        secs = time.perf_counter() - t0
+        counts = K.launch_counts()
+        check(all(r.done and r.error is None and len(r.out) == max_new
+                  for r in reqs),
+              f"{label} {tag}: a request failed: "
+              f"{[repr(r.error) for r in reqs if r.error]}")
+        st = engine.stats
+        check(st["completed"] == len(reqs) and st["failed"] == 0
+              and st["float_retries"] == 0 and st["expired"] == 0,
+              f"{label} {tag}: serving stats {st}")
+        per = lm_launches_per_call(cfg)
+        want = {**dict.fromkeys(counts, 0),
+                "bfp_matmul_prequant": per * engine.ncalls,
+                "bfp_matmul_xformat": per * engine.ncalls}
+        check(counts == want, f"{label} {tag}: launches {counts} != "
+                              f"{want}")
+        return [r.out for r in reqs], secs, counts
+
+    outs, secs, counts = serve(eng, "continuous")
+    launches[label] = counts
+    per = lm_launches_per_call(cfg)
+    gen_tokens = n_req * max_new
+    row.update(serve_s=secs, calls=eng.ncalls, tokens=gen_tokens,
+               prompt_tokens=sum(lens), tokens_per_s=gen_tokens / secs,
+               launches_per_call=per)
+    print(f"path {label}: {n_req} requests (prompts {min(lens)}-"
+          f"{max(lens)} tokens, max_new {max_new}, 4 slots, chunk 8): "
+          f"stats {eng.stats}, {eng.ncalls} decode_step calls, launches "
+          f"{({k: v for k, v in counts.items() if v})} = {per} + {per} "
+          f"per call as predicted", flush=True)
+
+    # solo serving on fresh engines of the same geometry (the sidecars
+    # bound again, not formatted again), then bucket batching
+    for i, p in enumerate(prompts):
+        solo = ServeEngine(qparams, cfg, policy=pol, strict_backend=True,
+                           **geometry)
+        r = Request(rid=i, prompt=list(p), max_new=max_new)
+        solo.submit(r)
+        solo.run()
+        check(r.error is None and r.out == outs[i],
+              f"{label}: request {i} alone gave {r.out}, batched "
+              f"{outs[i]}")
+    bucket = ServeEngine(qparams, cfg, policy=pol, strict_backend=True,
+                         batching="bucket", **geometry)
+    outs_b, secs_b, _ = serve(bucket, "bucket")
+    check(outs_b == outs, f"{label}: bucket tokens differ from continuous")
+    row.update(bucket_s=secs_b, bucket_calls=bucket.ncalls)
+    del solo, bucket
+
+    # four decode steps from one fresh cache: kernels against the plain
+    # versions (backend "plain", the same sidecars)
+    pplan = EG.bind(qparams, pol.with_(backend="plain"), tree="lm",
+                    strict=True, prequantize=False, device=dev)
+    toks = torch.tensor([[prompts[j % n_req][i] for i in range(4)]
+                         for j in range(4)], device=dev)
+    runs = {}
+    for name, plan in (("kernels", eng.plan), ("plain", pplan)):
+        cache = LM.init_cache(cfg, 4, 256, device=dev)
+        lgs = []
+        with torch.inference_mode():
+            for i in range(4):
+                lg, cache = LM.decode_step(plan.params, cfg, cache,
+                                           toks[:, i:i + 1], i, plan)
+                lgs.append(lg)
+        runs[name] = (torch.stack(lgs), cache)
+    (lk, ck), (lp, cp) = runs["kernels"], runs["plain"]
+    check(lk.shape == (4, 4, 1, cfg.vocab_size)
+          and bool(torch.isfinite(lk).all()),
+          f"{label}: decode logits not finite of the expected shape")
+    check(torch.equal(lk, lp) and all(torch.equal(ck[k], cp[k])
+                                      for k in ("k", "v")),
+          f"{label}: four decode steps on the kernels differ from the "
+          f"plain versions (max |diff| {diff(lk, lp)})")
+    print(f"path {label}: every request alone on a fresh engine gave its "
+          f"batched tokens; bucket batching ({row['bucket_calls']} calls) "
+          f"gave continuous' tokens; 4 decode steps on the kernels "
+          f"torch.equal to the plain versions (logits and bf16 caches)",
+          flush=True)
+    del pplan, runs
+
+    # steady-state decode steps: the median of CUDA-event times, then one
+    # step under the profiler (device ms by kernel family)
+    cache, tok = ck, toks[:, :1]
+    eng._step(cache, tok, 4)
+    sync()
+    ms = []
+    for i in range(LM_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng._step(cache, tok, 4 + i)
+        stop.record()
+        sync()
+        ms.append(start.elapsed_time(stop))
+    step_ms = statistics.median(ms)
+    # device events only (one decode step issues ~1,000 kernels); a
+    # capture short of mma-core events is retaken, and the fullest of
+    # PROFILE_TRIES kept, its count printed beside the times
+    best = None
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng._step(cache, tok, 4)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        fam = {"mma core": 0.0, "format pass": 0.0, "other": 0.0}
+        n_mma = 0
+        for e in prof.key_averages():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.self_device_time_total <= 0):
+                continue
+            key = ("mma core" if "conv_mma_kernel" in e.key else
+                   "format pass" if "xformat_kernel" in e.key else "other")
+            fam[key] += e.self_device_time_total / 1e3
+            n_mma += e.count if key == "mma core" else 0
+        if best is None or n_mma > best[0]:
+            best = (n_mma, fam, wall)
+        if n_mma == per:
+            break
+    n_mma, fam, wall = best
+    check(2 * n_mma >= per, f"{label}: the profiled step shows {n_mma} mma "
+                            f"core launches of {per}")
+    devt = sum(fam.values())
+    bms, by, nbytes, ops = lm_bound(eng.plan, 4)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    row.update(step_ms_median=step_ms, step_ms_all=ms,
+               profile={"wall_ms": wall, "device_ms": devt,
+                        "mma_events": n_mma, **fam},
+               bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+               bound_ops=ops, peak_gb=peak)
+    print(f"profile {label} decode step (M = 4): wall {wall:.4f} ms, "
+          f"device {devt:.4f} ms (busy {100 * devt / wall:.1f}%; "
+          f"{n_mma} of {per} mma-core launches captured): "
+          f"{json.dumps({k: round(v, 4) for k, v in fam.items()})}; "
+          f"kernel GEMMs' bound {bms:.4f} ms ({by}: {nbytes / 1e9:.4f} GB, "
+          f"{ops / 1e9:.3f} GOP)  [{card}]", flush=True)
+    print(f"time {label}: {gen_tokens / secs:.2f} tokens/s ({gen_tokens} "
+          f"generated, {sum(lens)} prompt tokens, in {secs:.3f} s, "
+          f"{eng.ncalls} calls)  [{card}]", flush=True)
+    print(f"time {label}: median decode step {step_ms:.4f} ms (CUDA "
+          f"events, {LM_TIMED_STEPS} steps, M = 4)  [{card}]", flush=True)
+    print(f"time {label}: init {row['init_s']:.3f} s, bind + prequant "
+          f"{row['bind_prequant_s']:.3f} s ({row['params'] / 1e9:.4f} B "
+          f"params)  [{card}]", flush=True)
+    print(f"memory {label}: peak {peak:.3f} GB allocated  [{card}]",
+          flush=True)
+    del eng, qparams, cache, ck, cp
+
+
+def lm_phase(dev, card, detail, launches, seed):
+    """Phase 14: the LM serving path (see the module docstring)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+
+    register_plain_backend()
+    t14 = time.perf_counter()
+    print(card_line(), flush=True)      # the card under phase 14's numbers
+    for label, arch, layers, n_req, max_new in LM_PATHS:
+        cfg = ARCHS[arch]
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers,
+                                      capacity_factor=float(cfg.n_experts))
+        print(f"path {label}: {arch} at published width (d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads, kv {cfg.n_kv_heads}, "
+              f"head_dim {cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+              f"{', %d experts top-%d' % (cfg.n_experts, cfg.top_k) if cfg.is_moe else ''}"
+              f"), {cfg.n_layers} layers"
+              f"{' (reduced depth: run time)' if layers else ''}"
+              f"{', capacity factor %g (no drops)' % cfg.capacity_factor if layers else ''}",
+              flush=True)
+        lm_path(label, cfg, n_req, max_new, dev, card, seed, detail,
+                launches)
+        torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"),
+                    os.environ.get("PYTHONPATH")) if p))
+    detail["lm_cli"] = []
+    for argv in LM_CLI_RUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        lines = run.stdout.strip().splitlines()
+        check(run.returncode == 0 and lines and
+              re.search(r"tok/s", lines[-1]),
+              f"cli {' '.join(argv)}: rc {run.returncode}\n{run.stdout}"
+              f"\n{run.stderr[-3000:]}")
+        detail["lm_cli"].append({"argv": list(argv), "seconds": secs,
+                                 "last_line": lines[-1]})
+        print(f"cli {' '.join(argv)}: rc 0 in {secs:.2f} s: {lines[-1]}  "
+              f"[{card}]", flush=True)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+
+
 def pol_lenet():
     """LeNet's kernel policy: PALLAS_TILED at block 16 (c2's K = 400 and
     fc1's 1568 are multiples), strict round to nearest."""
@@ -2974,7 +3299,10 @@ def main() -> int:
     load_phase(dev, card, detail, launches, models["resnet50_full"], gen)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
 
-    # -- 14. results ---------------------------------------------------------
+    # -- 14. the LM serving path ---------------------------------------------
+    lm_phase(dev, card, detail, launches, args.seed)
+
+    # -- 15. results ---------------------------------------------------------
     kernels = []
     for name in SOURCES:
         path = next(p for p in launches if launches[p][name] > 0)

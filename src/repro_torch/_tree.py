@@ -14,8 +14,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Tuple
 
-__all__ = ["flatten", "unflatten", "map_with_path", "tree_map", "keystr",
-           "describe", "GetAttrKey"]
+__all__ = ["flatten", "leaves_with_path", "unflatten", "map_with_path",
+           "tree_map", "keystr", "describe", "GetAttrKey"]
 
 Path = Tuple[Any, ...]
 IsLeaf = Optional[Callable[[Any], bool]]
@@ -64,9 +64,17 @@ def _walk(node: Any, path: Path, is_leaf: IsLeaf, out: List):
 def flatten(tree: Any, is_leaf: IsLeaf = None) -> Tuple[List[Any], Any]:
     """``(leaves, treedef)``; ``treedef`` is the tree itself, the template
     :func:`unflatten` fills."""
+    return ([leaf for _, leaf in leaves_with_path(tree, is_leaf)],
+            (tree, is_leaf))
+
+
+def leaves_with_path(tree: Any, is_leaf: IsLeaf = None
+                     ) -> List[Tuple[Path, Any]]:
+    """``(path, leaf)`` pairs in flatten order
+    (``jax.tree_util.tree_flatten_with_path``)."""
     out: List = []
     _walk(tree, (), is_leaf, out)
-    return [leaf for _, leaf in out], (tree, is_leaf)
+    return out
 
 
 def unflatten(treedef: Any, leaves: List[Any]) -> Any:

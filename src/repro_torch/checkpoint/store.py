@@ -84,7 +84,7 @@ def save(base: str, step: int, tree, keep: int = 3, *,
     selects are stored as serialized :class:`PackedBFP` containers
     (uint8 rows in the same ``arrays.npz``), everything else as float.
     ``format="bfp_packed_v2"`` is the same walk writing variable-width
-    (v3) containers.  ``tree_kind`` ("cnn" | "auto") picks the path
+    (v3) containers.  ``tree_kind`` ("cnn" | "lm" | "auto") picks the path
     convention, as in ``engine.bind``.  A tree that already contains
     PackedBFP leaves is stored packed under any format (no policy
     needed).

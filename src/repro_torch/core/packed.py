@@ -719,7 +719,9 @@ def pack_param_tree(params: Any, policy: Any, kind: str = "auto",
     weights, rules resolving to None, Python ints) stays untouched.
 
     The leaf selection and layer paths are those of
-    ``core.prequant.quantize_cnn_param_tree``, so a packed checkpoint
+    ``core.prequant.quantize_param_tree`` (LM trees: stacked ``[L, K, N]``
+    and ``[L, E, K, N]`` leaves pack whole, one exponent per block of each
+    trailing matrix) and ``quantize_cnn_param_tree``, so a packed checkpoint
     stores exactly the leaves a bound plan would pre-quantize —
     restoring to ``{"m", "s"}`` sidecars is bit-identical to binding the
     float tree under the same policy.  A tree that already holds
@@ -727,7 +729,7 @@ def pack_param_tree(params: Any, policy: Any, kind: str = "auto",
     them as-is, losslessly.  Weights are quantized where they live;
     the containers are host bytes.
 
-    ``kind``: "cnn" | "auto"; LM trees arrive with the LM slice.
+    ``kind``: "cnn" | "lm" | "auto" (the detection ``engine.bind`` uses).
     ``variable=True`` writes v3 variable-width containers — the
     checkpoint store's ``format="bfp_packed_v2"``.
     """
@@ -737,11 +739,7 @@ def pack_param_tree(params: Any, policy: Any, kind: str = "auto",
                          "(got None — nothing would be packed)")
     if kind == "auto":
         kind = PQ.detect_tree_kind(params)   # same detector engine.bind uses
-    if kind == "lm":
-        raise NotImplementedError(
-            "pack_param_tree(kind='lm'): the LM walkers are not ported yet "
-            "(ROADMAP Queue 1 item 7, the LM slice)")
-    if kind != "cnn":
+    if kind not in ("cnn", "lm"):
         raise ValueError(f"kind must be 'cnn', 'lm', or 'auto'; got {kind!r}")
 
     def pack_one(leaf, w, pol, path, conv):
@@ -765,6 +763,13 @@ def pack_param_tree(params: Any, policy: Any, kind: str = "auto",
         if not isinstance(w, torch.Tensor) or (
                 not prequantized and not w.is_floating_point()):
             return leaf
+        if kind == "lm":
+            if not PQ.lm_eligible(keys) or w.ndim < 2:
+                return leaf
+            path = PQ.lm_rule_path(keys)
+            pol = PQ._resolve(policy, path)
+            return leaf if pol is None else pack_one(leaf, w, pol, path,
+                                                     False)
         if not keys or keys[-1] != "w":
             return leaf
         path = PQ.cnn_rule_path(params, keys)

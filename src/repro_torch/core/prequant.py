@@ -11,6 +11,11 @@ quantization would have produced for Scheme.TILED with the same
 ``block_k`` — but the quantization runs once, not per forward.
 Conv kernels keep their mantissa in HWIO with the sidecar in the GEMM
 view ``[kh*kw*C // bk, OC]`` (HWIO-major K, ``core.conv_utils``).
+
+``quantize_param_tree`` converts LM trees (>=2-D GEMM leaves, stacked
+``[L, K, N]`` and ``[L, E, K, N]`` MoE experts included: each trailing
+``[K, N]`` matrix quantizes on its own); ``quantize_cnn_param_tree``
+walks CNN trees.  Both take a single policy or a per-layer PolicyMap.
 """
 from __future__ import annotations
 
@@ -22,10 +27,10 @@ from repro_torch import _tree
 from repro_torch.core import bfp
 from repro_torch.core.policy import BFPPolicy
 
-__all__ = ["quantize_cnn_param_tree", "prequant_leaf", "prequant_conv_leaf",
-           "dequantize_prequant", "is_prequant", "prequant_act",
-           "dequantize_act", "act_block", "cnn_rule_path",
-           "detect_tree_kind"]
+__all__ = ["quantize_param_tree", "quantize_cnn_param_tree", "prequant_leaf",
+           "prequant_conv_leaf", "dequantize_prequant", "is_prequant",
+           "prequant_act", "dequantize_act", "act_block", "lm_rule_path",
+           "lm_eligible", "cnn_rule_path", "detect_tree_kind"]
 
 
 def is_prequant(w: Any) -> bool:
@@ -118,6 +123,67 @@ def dequantize_act(x: Any, dtype=torch.float32) -> torch.Tensor:
 def act_block(x: Any) -> int:
     """Block size of an activation-prequant dict (K // sidecar columns)."""
     return x["m"].shape[-1] // x["s"].shape[-1]
+
+
+#: Leaf names that hold GEMM weights in LM trees: linear_init's "w" and
+#: the MoE batched expert matrices.  Everything else (norm gains, biases,
+#: embeddings — the gather path) stays float.
+_GEMM_LEAF_NAMES = ("w", "w1", "w2", "w3")
+
+#: Leading stack-container keys that runtime layer paths do not carry
+#: (the layer loop passes "attn/wq", not "layers/attn/wq").  "enc" is
+#: NOT stripped: encoder paths keep it.
+_LM_STACK_PREFIXES = ("layers", "dec", "periods", "rem")
+
+
+def lm_rule_path(keys) -> str:
+    """Tree path (string keys) -> the runtime layer path PolicyMap rules
+    see: the trailing "w" and the leading stack containers and indices
+    are stripped, so "layers/attn/wq/w" resolves as "attn/wq".  MoE
+    expert leaves keep their matrix name ("moe/w1" vs the runtime
+    "moe"), so substring rules ("^moe") cover both."""
+    ks = list(keys)
+    if ks and ks[-1] == "w":
+        ks = ks[:-1]
+    while ks and (ks[0] in _LM_STACK_PREFIXES or ks[0].isdigit()):
+        ks = ks[1:]
+    return "/".join(ks)
+
+
+def lm_eligible(keys) -> bool:
+    """Is the LM leaf at ``keys`` a GEMM weight?  Routers (always float)
+    and the embedding table are not."""
+    if not keys or keys[-1] not in _GEMM_LEAF_NAMES:
+        return False
+    if len(keys) >= 2 and keys[-2] == "router":
+        return False
+    return "/".join(keys) != "embed/e"
+
+
+def quantize_param_tree(params: Any, policy: Any) -> Any:
+    """Walk an LM param tree; convert GEMM weights to the wire format.
+
+    ``policy`` may be None (no-op), a BFPPolicy, or a PolicyMap (a rule
+    resolving to None keeps that leaf float), matched against the same
+    layer paths the runtime GEMMs use ("attn/wq", "ffn/w1", "lm_head").
+    Stacked leaves ([L, K, N], or [L, E, K, N] MoE experts) quantize each
+    trailing [K, N] matrix independently."""
+    if policy is None:
+        return params
+
+    def one(path, leaf):
+        keys = [str(k) for k in path]
+        if not lm_eligible(keys):
+            return leaf
+        pol = _resolve(policy, lm_rule_path(keys))
+        if pol is None:
+            return leaf
+        if isinstance(leaf, torch.Tensor) and leaf.ndim >= 2 and \
+                leaf.is_floating_point():
+            return prequant_leaf(leaf, pol)
+        return leaf
+
+    return _tree.map_with_path(one, params)
 
 
 def _conv_bn_nested(params, rule_keys) -> bool:

@@ -9,16 +9,16 @@ from repro_torch.engine.backends import (BackendFallbackWarning,
                                          available_backends, get_backend,
                                          register_backend, select_backend)
 from repro_torch.engine.core import (conv2d, conv2d_im2col, gemm,
-                                     prequantize_cnn)
-from repro_torch.engine.plan import Plan, Site, bind
+                                     prequantize, prequantize_cnn)
+from repro_torch.engine.plan import Plan, Site, bind, unpack_packed
 from repro_torch.engine.policy_map import (PolicyLike, PolicyMap, join_path,
                                            resolve_policy)
 from repro_torch.engine.taps import TapEvent, taps
 
 __all__ = [
-    "gemm", "conv2d", "conv2d_im2col", "prequantize_cnn",
+    "gemm", "conv2d", "conv2d_im2col", "prequantize", "prequantize_cnn",
     "is_prequant", "prequant_act", "dequantize_act", "act_block",
-    "bind", "Plan", "Site",
+    "bind", "Plan", "Site", "unpack_packed",
     "taps", "TapEvent",
     "PolicyMap", "PolicyLike", "resolve_policy", "join_path",
     "register_backend", "get_backend", "available_backends",

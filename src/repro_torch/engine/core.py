@@ -50,12 +50,14 @@ from repro_torch.core.bfp import Rounding, Scheme
 from repro_torch.core.conv_utils import conv_weight_matrix, im2col
 from repro_torch.core.prequant import (act_block, dequantize_act,
                                        is_prequant, prequant_act,
-                                       quantize_cnn_param_tree)
+                                       quantize_cnn_param_tree,
+                                       quantize_param_tree)
 from repro_torch.engine import backends as BK
 from repro_torch.engine import taps as TAPS
 from repro_torch.engine.policy_map import PolicyLike, resolve_policy
 
-__all__ = ["gemm", "conv2d", "conv2d_im2col", "prequantize_cnn"]
+__all__ = ["gemm", "conv2d", "conv2d_im2col", "prequantize",
+           "prequantize_cnn"]
 
 
 def _check_out_policy(out_policy) -> None:
@@ -357,6 +359,13 @@ def conv2d_im2col(x: Any, w: Any, pol, stride: int = 1,
     :func:`conv2d` entry does, once per conv site)."""
     return _conv_im2col_exec(x, w, pol, stride, padding,
                              out_policy=out_policy, noise=noise)[0]
+
+
+def prequantize(params: Any, policy: PolicyLike) -> Any:
+    """Quantize an LM param tree's GEMM weights once (wire format); a
+    PolicyMap rule resolving to None keeps that leaf float.  The result
+    feeds the same model code: every backend consumes the wire format."""
+    return quantize_param_tree(params, policy)
 
 
 def prequantize_cnn(params: Any, policy: PolicyLike) -> Any:

@@ -27,6 +27,17 @@ require grad takes the autograd route with the site's bound specs.
 scopes prequantization to it) and binds policy-only entries for paths
 the walk cannot see, as ``repro``'s ``bind`` does.
 
+LM trees (``tree="lm"``, or ``"auto"`` on a tree with ``embed`` /
+``layers``) bind every GEMM weight the LM walkers select
+(``core.prequant.lm_eligible``) on its runtime path
+(``lm_rule_path``: "attn/wq", "ffn/w1", "moe/w1", "lm_head").  A stacked
+leaf (``[L, K, N]``, or ``[L, E, K, N]`` MoE experts) is one ``gemm``
+site for all its layers, backend support judged on the leaf's dtype as
+for a 2-D one (every trailing ``[K, N]`` matrix shares it), and where
+two leaves alias one runtime path the first in the tree's sorted walk
+wins, as in ``repro``.  Paths the walk cannot see (the MoE experts'
+runtime path "moe") resolve per call against the original policy.
+
 ``tune_cache=`` attaches a :class:`repro_torch.tune.TuneCache` (or a
 path): the plan activates it around every bound execution, so each
 kernel launches with its site's tuned tile (``kernels.ops``); the
@@ -47,7 +58,9 @@ from repro_torch.core.bfp import Rounding, Scheme
 from repro_torch.core.packed import is_packed, unpack_prequant
 from repro_torch.core.policy import BFPPolicy
 from repro_torch.core.prequant import (cnn_rule_path, detect_tree_kind,
-                                       is_prequant, quantize_cnn_param_tree)
+                                       is_prequant, lm_eligible, lm_rule_path,
+                                       quantize_cnn_param_tree,
+                                       quantize_param_tree)
 from repro_torch.engine import backends as BK
 from repro_torch.engine import taps as TAPS
 from repro_torch.engine.core import (_grad_vjp, _routed, conv_and_tap,
@@ -283,6 +296,19 @@ def params_to(params: Any, device: torch.device) -> Any:
         else leaf, params)
 
 
+def _discover_lm_sites(params: Any):
+    """Yield (runtime_path, "gemm", weight_leaf) for every GEMM weight of
+    an LM tree in the tree's sorted walk (``repro``'s leaf order) — the
+    same selection and path derivation the LM prequant walker uses."""
+    for path, leaf in _tree.leaves_with_path(params, is_leaf=is_prequant):
+        keys = [str(k) for k in path]
+        arr = leaf["m"] if is_prequant(leaf) else leaf
+        if not isinstance(arr, torch.Tensor) or arr.ndim < 2 \
+                or not lm_eligible(keys):
+            continue
+        yield lm_rule_path(keys), "gemm", leaf
+
+
 def _discover_sites(params: Any):
     """Yield (runtime_path, kind, weight_leaf) for every conv/GEMM weight
     of a CNN tree — the same path derivation the prequant walker uses."""
@@ -319,10 +345,11 @@ def bind(params: Any, policy: PolicyLike,
          *, tree: str = "auto", strict: bool = False,
          prequantize: bool = True, device: DeviceLike = "cuda",
          tune_cache: Any = None) -> Plan:
-    """Bind ``policy`` to a CNN's parameters: one walk, one Plan.
+    """Bind ``policy`` to a model's parameters: one walk, one Plan.
 
     Args:
-      params: model param tree (``models.cnn`` conventions; an already
+      params: model param tree (``models.cnn`` or ``models.lm``
+        conventions; an already
         pre-quantized tree is fine — quantization is idempotent — and so
         is one with :class:`~repro_torch.core.packed.PackedBFP` leaves,
         unpacked here by :func:`unpack_packed`).
@@ -332,7 +359,7 @@ def bind(params: Any, policy: PolicyLike,
         prequantization to their leaves) and binds policy-only entries
         (no weight checks, no prequant; kind "gemm" unless given) for
         paths the tree walk cannot see.  Default: every site found.
-      tree: "cnn" or "auto"; LM trees arrive with the LM slice.
+      tree: "cnn" | "lm" | "auto" — which path convention the tree uses.
       strict: refuse (raise) backend downgrades instead of the once-per-
         site :class:`BackendFallbackWarning` and the emulated fallback —
         also applied to unbound-path dispatch at call time.
@@ -358,9 +385,8 @@ def bind(params: Any, policy: PolicyLike,
     # into {"m", "s"} sidecars on the plan's device — never through float
     params = unpack_packed(params, dev)
     kind = detect_tree_kind(params) if tree == "auto" else tree
-    if kind != "cnn":
-        raise ValueError(f"bind supports CNN trees (tree='cnn' or 'auto' on "
-                         f"a CNN tree) until the LM slice; got {kind!r}")
+    if kind not in ("cnn", "lm"):
+        raise ValueError(f"tree must be 'cnn', 'lm', or 'auto'; got {kind!r}")
     wanted: Optional[Dict[str, Optional[str]]] = None
     if model_paths is not None:
         wanted = {}
@@ -373,9 +399,10 @@ def bind(params: Any, policy: PolicyLike,
     if prequantize:
         # a model_paths restriction scopes prequantization too: sites
         # outside it are not bound, so their leaves stay float
-        qparams = quantize_cnn_param_tree(
-            qparams, policy if wanted is None else _ScopedPolicy(policy,
-                                                                 wanted))
+        quantizer = (quantize_param_tree if kind == "lm"
+                     else quantize_cnn_param_tree)
+        qparams = quantizer(qparams, policy if wanted is None
+                            else _ScopedPolicy(policy, wanted))
     warned: set = set()   # fresh per bind: each plan reports its own
 
     def bind_grad(path: str, which: str) -> GradSpec:
@@ -409,7 +436,8 @@ def bind(params: Any, policy: PolicyLike,
                     dx=bind_grad(path, "dx"), dw=bind_grad(path, "dw"))
 
     sites: Dict[str, Site] = {}
-    for path, skind, leaf in _discover_sites(qparams):
+    discover = _discover_lm_sites if kind == "lm" else _discover_sites
+    for path, skind, leaf in discover(qparams):
         if path in sites or (wanted is not None and path not in wanted):
             continue
         sites[path] = site(path, skind, leaf, is_prequant(leaf))

@@ -1,2 +1,3 @@
 """Serving of the port (counterpart of ``repro.serve``): the batched CNN
-engine, its slot table, graceful degradation and multi-tenant serving."""
+engine, the LM decode engine (``engine``), their slot table, graceful
+degradation and multi-tenant serving."""

@@ -24,7 +24,8 @@ from repro_torch.core import packed as PK
 from repro_torch.core import prequant as PQ
 
 __all__ = ["ServeRejected", "QueueOverloaded", "DeadlineExceeded",
-           "DegradeConfig", "DegradeController", "float_params"]
+           "RequestTooLarge", "DegradeConfig", "DegradeController",
+           "float_params"]
 
 
 class ServeRejected(RuntimeError):
@@ -43,6 +44,13 @@ class QueueOverloaded(ServeRejected):
 class DeadlineExceeded(ServeRejected):
     """The request's deadline passed before its logits were produced
     (delivered as ``req.error``, never raised through the step loop)."""
+
+
+class RequestTooLarge(ServeRejected):
+    """The request cannot fit the LM engine's cache geometry: raised by
+    ``submit`` when ``len(prompt) + max_new > max_len`` (the request was
+    never enqueued).  Decode positions past ``max_len`` would write
+    outside the KV cache, so the request is refused at the door."""
 
 
 @dataclasses.dataclass(frozen=True)

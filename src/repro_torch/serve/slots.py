@@ -9,7 +9,7 @@ queued requests into free slots, and immediate slot reuse when a request
 finishes.  The batched forwards stay whole-batch and shape-stable;
 this table only decides WHICH rows are live.  ``serve.cnn.CnnServeEngine``
 (batched CNN inference, where every admitted request completes in one
-forward) uses it; the LM decode engine will when it is ported.
+forward) and ``serve.engine.ServeEngine`` (LM decode) use it.
 """
 from __future__ import annotations
 

@@ -246,7 +246,8 @@ def test_save_and_restore_validation(tmp_path):
         store.restore(d, params, packed="nope", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         store.restore(d, params, sharding_fn=lambda i: None, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # an LM tree whose only leaf is the embedding (never a GEMM weight)
+    with pytest.raises(ValueError, match="packed zero leaves"):
         store.save(d, 1, {"embed": torch.zeros(4, 2)}, format="bfp_packed",
                    policy=POL)
     # a pre-packed tree needs no policy; fixed and variable leaves share

@@ -5,6 +5,8 @@ the JAX package, so it runs on a machine that has only the port:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -824,10 +826,17 @@ def _lenet_train_policy(**kw):
 
 def _register_plain_backend():
     """Backend "plain": the kernels' plain versions, for dense float
-    operands (all a training step gives the engine)."""
+    operands (all a training step gives the engine) and prequantized
+    matmul weights (a served LM's)."""
+    def matmul(x, w, p, out_policy=None):
+        if isinstance(w, dict):
+            kb = w["m"].shape[0] // w["s"].shape[0]
+            return KM.bfp_matmul_prequant_plain(x, w["m"], w["s"], p.l_i,
+                                                p.l_w, kb)
+        return KM.bfp_matmul_plain(x, w, p.l_i, p.l_w, p.block_k)
+
     EG.register_backend(
-        "plain", lambda x, w, p, out_policy=None: KM.bfp_matmul_plain(
-            x, w, p.l_i, p.l_w, p.block_k),
+        "plain", matmul,
         conv=lambda x, w, p, stride, padding, out_policy=None:
         KC.bfp_conv2d_plain(x, w, p.l_i, p.l_w, p.block_k, stride,
                             padding))
@@ -975,3 +984,72 @@ def test_cuda_bound_plan_with_a_tuned_cache_hits_on_every_site(cuda):
                                     for r in reqs])
     assert (cache.hits, cache.misses) == (16 * eng.ncalls, 0)
     assert torch.equal(logits["tuned"], logits["untuned"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,per_step", [("tinyllama-1.1b", 2 * 7 + 1),
+                                           ("olmoe-1b-7b", 2 * 4 + 1)])
+def test_cuda_lm_decode_and_serving_match_plain_versions(cuda, arch,
+                                                         per_step):
+    """A reduced LM (2 layers, d_model 64) bound at ``PALLAS_TILED``
+    (block 32, prequantized) on the kernels: four decode steps'
+    logits and caches ``torch.equal`` to the same steps through the
+    plain versions, one prequant matmul and one activation format pass
+    per linear per step, and served tokens equal to the plain-version
+    engine's and to solo serving."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.lm import model as LM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    _register_plain_backend()
+    cfg = reduced(ARCHS[arch], n_layers=2, d_model=64, d_ff=128, vocab=256)
+    cfg = dataclasses.replace(cfg, capacity_factor=float(max(
+        cfg.n_experts, 1)))
+    params = LM.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=cuda)
+    pol = PALLAS_TILED.with_(block_k=32, straight_through=False)
+    toks = torch.randint(0, 256, (4, 4), generator=torch.Generator()
+                         .manual_seed(1)).to(cuda)
+    runs = {}
+    for name in ("kernels", "plain"):
+        plan = EG.bind(params, pol.with_(backend="pallas" if name ==
+                                         "kernels" else "plain"),
+                       tree="lm", strict=True, device=cuda)
+        cache = LM.init_cache(cfg, 4, 16, device=cuda)
+        K.reset_launch_counts()
+        logits = []
+        with torch.inference_mode():
+            for i in range(4):
+                lg, cache = LM.decode_step(plan.params, cfg, cache,
+                                           toks[:, i:i + 1], i, plan)
+                logits.append(lg)
+        torch.cuda.synchronize()
+        runs[name] = (torch.stack(logits), cache, K.launch_counts())
+    (lk, ck, nk), (lp, cp, npl) = runs["kernels"], runs["plain"]
+    assert torch.equal(lk, lp)
+    assert all(torch.equal(ck[k], cp[k]) for k in ("k", "v"))
+    assert nk["bfp_matmul_prequant"] == nk["bfp_matmul_xformat"] == \
+        4 * per_step
+    assert sum(npl.values()) == 0
+    outs = {}
+    prompts = [[1, 2, 3], [9, 8, 7, 6, 5], [4, 4]]
+    for name, be in (("kernels", "pallas"), ("plain", "plain")):
+        p = pol.with_(backend=be)
+        eng = ServeEngine(params, cfg, slots=4, max_len=32, policy=p,
+                          prequant=p, strict_backend=True, device=cuda)
+        rs = [Request(rid=i, prompt=pr, max_new=5)
+              for i, pr in enumerate(prompts)]
+        for r in rs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.error is None for r in rs)
+        outs[name] = [r.out for r in rs]
+    assert outs["kernels"] == outs["plain"]
+    solo = ServeEngine(params, cfg, slots=4, max_len=32, policy=pol,
+                       prequant=pol, device=cuda)
+    r = Request(rid=9, prompt=prompts[1], max_new=5)
+    solo.submit(r)
+    solo.run()
+    assert r.out == outs["kernels"][1]
+

@@ -181,3 +181,47 @@ def test_tune_entry_points_need_cuda_unless_asked(monkeypatch, tmp_path):
         "--checkpoint-out", str(tmp_path / "ckpt")])
     tune_cli.main()
     assert (tmp_path / "p.json").exists() and (tmp_path / "ckpt").exists()
+
+
+def test_lm_entry_points_need_cuda_unless_asked(monkeypatch):
+    """The LM serving slice (configs, models.lm, serve.engine,
+    launch.serve, bind(tree="lm")) defaults to the card and raises
+    without it; asked for explicitly, the CPU serves."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.lm import model as lm
+    from repro_torch.serve import engine as SE
+
+    assert {"configs", "lm"} <= {f.parent.name for f in _port_files()}
+    cfg = reduced(ARCHS["tinyllama-1.1b"], n_layers=1, d_model=32, d_ff=32,
+                  vocab=64)
+    gen = torch.Generator().manual_seed(0)
+    params = lm.init_params(cfg, gen, device="cpu")
+    prompt = torch.tensor([[1, 2]])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: lm.init_params(cfg, gen),
+                 lambda: lm.init_cache(cfg, 1, 8),
+                 lambda: SE.ServeEngine(params, cfg, slots=1, max_len=8),
+                 lambda: SE.generate(params, cfg, prompt, 2),
+                 lambda: SE.prefill(params, cfg, prompt,
+                                    lm.init_cache(cfg, 1, 8, device="cpu")),
+                 lambda: EG.bind(params, PALLAS_TILED, tree="lm"),
+                 lambda: EG.bind(params, PALLAS_TILED),
+                 lambda: serve_cli.main(["--arch", "tinyllama-1.1b"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # asked for explicitly, the CPU serves
+    eng = SE.ServeEngine(params, cfg, slots=1, max_len=8,
+                         policy=PALLAS_TILED.with_(block_k=16),
+                         device="cpu")
+    req = SE.Request(rid=0, prompt=[1, 2], max_new=2)
+    eng.submit(req)
+    eng.run()
+    assert req.error is None and len(req.out) == 2
+    assert eng.plan.params["layers"]["attn"]["wq"]["w"].device.type == "cpu"
+    out = SE.generate(params, cfg, prompt, 2, device="cpu")
+    assert out.shape == (1, 2) and out.device.type == "cpu"
+    serve_cli.main(["--arch", "olmoe-1b-7b", "--requests", "1",
+                    "--max-new", "2", "--bfp", "--bfp-weights",
+                    "--device", "cpu"])

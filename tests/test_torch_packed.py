@@ -257,10 +257,15 @@ def test_pack_param_tree_needs_policy_and_a_cnn_kind():
         packed.pack_param_tree(params, None)
     with pytest.raises(ValueError, match="kind"):
         packed.pack_param_tree(params, POL, kind="nope")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        packed.pack_param_tree(params, POL, kind="lm")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        packed.pack_param_tree({"embed": torch.zeros(4, 2)}, POL)
+    # an LM tree (detected by its "embed"): GEMM weights pack, the
+    # embedding stays float
+    lm = {"embed": {"e": torch.zeros(4, 2)},
+          "lm_head": {"w": torch.randn(64, 8, generator=torch.Generator())}}
+    pk = packed.pack_param_tree(lm, POL)
+    assert packed.is_packed(pk["lm_head"]["w"])
+    assert pk["embed"]["e"] is lm["embed"]["e"]
+    assert packed.pack_param_tree(lm, POL, kind="lm")["lm_head"]["w"] \
+        .to_bytes() == pk["lm_head"]["w"].to_bytes()
 
 
 def test_pack_param_tree_leaves_non_gemm_leaves_alone():

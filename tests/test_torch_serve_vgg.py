@@ -152,8 +152,10 @@ def test_bind_refuses_policies_the_kernels_cannot_run():
         plan = EG.bind(params, PAPER_DEFAULT, device="cpu")
     assert all(s.backend.name == "emulated" and not s.fallback
                for s in plan.sites.values())
-    with pytest.raises(ValueError, match="LM"):
-        EG.bind({"embed": {}}, None, device="cpu")
+    # an LM tree binds on the LM walk (here: no GEMM weight, no site)
+    assert dict(EG.bind({"embed": {}}, None, device="cpu").sites) == {}
+    with pytest.raises(ValueError, match="tree must be"):
+        EG.bind(params, None, tree="rnn", device="cpu")
 
 
 def _tiny_params():
