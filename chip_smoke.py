@@ -211,8 +211,40 @@ raises (and so exits non-zero) when it fails:
    ``LM_PATHS``), 4 requests of 8 new tokens, the same checks, 17
    launches per call (the router in float, the experts on the emulated
    datapath).  The LM serve CLI (``repro_torch.launch.serve``, smoke
-   scale) once as a subprocess, exiting 0;
-15. a JSON line of per-kernel numbers, then the result line
+   scale: TinyLlama and RWKV6) as subprocesses, exiting 0;
+15. the recurrent LM families and the encoder-decoder, each bound at
+   ``PALLAS_TILED`` (strict, weights prequantized).  ``lm_rwkv6_full``:
+   RWKV6-3B at its published configuration (32 layers, d_model 2560, 40
+   WKV heads of 64, d_ff 8960, vocab 65,536) served like phase 14's
+   paths (8 requests of 16 new tokens), its decay LoRA's ``tm/wB`` (K =
+   64) left float; its decode forms drop the policy (R7), so a
+   ``decode_step`` launches only ``lm_head`` (1 + 1 a call) and runs
+   every layer GEMM on the float backend; a forward over B = 2, S = 64
+   (two WKV chunks) ``torch.equal`` to the plain versions with 289 + 289
+   prequant launches and 32 + 32 inline ones (``tm/wB``).
+   ``lm_griffin_width``: RecurrentGemma-9B at published width (LRU 4096,
+   16 heads of 256, MQA, d_ff 12,288, vocab 256,000, window 2048, tied
+   embeddings) at 5 of its 38 layers (one (rec, rec, attn) period and
+   two rec blocks), 4 requests of 8 new tokens, the same checks, 39 + 39
+   prequant launches a call and the tied head on the float ``embed.T``
+   (1 + 1); ``lm_head`` timed alone.  ``lm_seamless_full``:
+   seamless-m4t-medium at its published configuration (12 + 12 layers,
+   d_model 1024, 16 heads, d_ff 4096, vocab 256,206) through
+   ``serve.generate(enc_feats=)``: B = 4 rows of 1,024 seeded frame
+   embeddings, 8-token prompts, 16 new greedy tokens; 84 + 84 launches
+   for ``prefill_encoder`` and 133 + 132 a ``decode_step`` call (11
+   linears of 12 decoder layers on the mma core, ``lm_head`` with N % 4
+   = 2 on the tile kernel, timed alone); the rows rolled by one slot
+   give their batched tokens (each row generated alone, B = 1, is
+   printed: the float attention at another batch size may round
+   otherwise), and the tokens, the encoder output and four decode steps
+   are ``torch.equal`` to the plain versions.  Each path
+   prints tokens/s, the median ``decode_step`` (CUDA events), one
+   profiled step by kernel family (mma core, format passes, tile kernel,
+   cuBLAS float GEMMs, other) beside the bound of the GEMMs that ran on
+   the kernels in it (tapped: float-backend GEMMs left out), init and
+   bind + prequant seconds, and peak memory;
+16. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
@@ -1676,52 +1708,181 @@ def load_phase(dev, card, detail, launches, r50, gen):
 #: capacity the same way, ``tests/test_models_lm.py``).
 LM_PATHS = (("lm_tinyllama_full", "tinyllama-1.1b", None, 8, 32),
             ("lm_olmoe_width", "olmoe-1b-7b", 4, 4, 8))
+#: phase 15's recurrent LM paths, served like phase 14's: (label, arch,
+#: layers kept, requests, max_new, site paths left float by the
+#: prequant walk).  RWKV6-3B at its published depth; its decay LoRA's
+#: second matrix (``tm/wB``, K = 64 < block 128) stays float.
+#: RecurrentGemma-9B keeps 5 of its 38 layers: one (rec, rec, attn)
+#: period and the two trailing rec blocks, so the period loop and the
+#: remainder both run (full depth is 9.40 B params, 37.6 GB f32 at
+#: init, for no other code path).
+LM_RECURRENT_PATHS = (
+    ("lm_rwkv6_full", "rwkv6-3b", None, 8, 16, ("tm/wB",)),
+    ("lm_griffin_width", "recurrentgemma-9b", 5, 4, 8, ()))
+#: phase 15's encoder-decoder: seamless-m4t-medium at its published
+#: configuration through ``serve.generate(enc_feats=)`` (``ServeEngine``
+#: refuses an encoder-decoder, as in the reference): (label, arch, rows,
+#: encoder frames, prompt tokens, max_new)
+LM_ENCDEC_PATH = ("lm_seamless_full", "seamless-m4t-medium", 4, 1024, 8,
+                  16)
 #: the LM serve CLI runs of phase 14 (each a subprocess, on the card)
 LM_CLI_RUNS = (("--arch", "tinyllama-1.1b", "--scale", "smoke",
                 "--requests", "2", "--max-new", "4", "--bfp",
-                "--bfp-weights"),)
+                "--bfp-weights"),
+               ("--arch", "rwkv6-3b", "--scale", "smoke", "--requests",
+                "2", "--max-new", "4", "--bfp", "--bfp-weights"))
 #: decode steps timed one by one (CUDA events) for the median
 LM_TIMED_STEPS = 20
+#: the kernel families of an LM step's profile: the BFP kernels by name,
+#: then cuBLAS's float GEMMs (the float backend: RWKV6's decode, R7)
+LM_FAMILIES = FAMILIES + tuple(("float GEMMs", k) for k in
+                              ("gemm", "gemv", "xmma", "cutlass"))
 
 
-def lm_launches_per_call(cfg) -> int:
-    """``bfp_matmul_prequant`` (and ``bfp_matmul_xformat``) launches per
-    ``decode_step``: every linear of a layer (7; 4 with MoE, whose expert
-    GEMMs run the emulated datapath) and ``lm_head``, each prequantized
-    (block 128 divides every K, N % 4 == 0) on the mma core after one
-    activation format pass."""
-    return cfg.n_layers * (4 if cfg.is_moe else 7) + 1
+def lm_launches_per_call(cfg, forward: bool = False):
+    """{counter: launches} of one ``decode_step`` call (``forward``: one
+    ``forward``) at PALLAS_TILED, block 128, read from the model code.
+    Every layer linear is prequantized (block 128 divides every K, N %
+    4 == 0) and runs the mma core after one activation format pass: 7 an
+    attention block (4 with MoE, whose expert GEMMs run the emulated
+    datapath), 8 a Griffin rec block (in_g, in_x, wr, wi, out, ffn w1-3),
+    11 a decoder block with cross-attention.  RWKV6's decode forms drop
+    the policy (R7): no layer GEMM on the kernels; its forward runs 9
+    prequant linears a layer and ``tm/wB`` (K = 64, float) on the
+    patch pass and the core.  ``lm_head``: a tied head multiplies the
+    float ``embed.T`` (patch pass + core); a vocabulary with N % 4 != 0
+    (seamless' 256,206) runs the tile kernel, with no pass."""
+    from repro_torch.models.lm.model import _hybrid_layout
+
+    out = {}
+    if cfg.family == "ssm":
+        layer = 9 * cfg.n_layers if forward else 0
+        if forward:
+            out = {"bfp_matmul": cfg.n_layers,
+                   "bfp_matmul_pformat": cfg.n_layers}
+    elif cfg.block_pattern:
+        n_periods, rem = _hybrid_layout(cfg)
+        layer = 8 * (2 * n_periods + len(rem)) + 7 * n_periods
+    elif cfg.is_encdec:
+        layer = 11 * cfg.n_layers
+    else:
+        layer = cfg.n_layers * (4 if cfg.is_moe else 7)
+    out.update(bfp_matmul_prequant=layer, bfp_matmul_xformat=layer)
+    head = "bfp_matmul" if cfg.tie_embeddings else "bfp_matmul_prequant"
+    out[head] = out.get(head, 0) + 1
+    if cfg.vocab_size % 4 == 0:
+        fmt = ("bfp_matmul_pformat" if cfg.tie_embeddings
+               else "bfp_matmul_xformat")
+        out[fmt] = out.get(fmt, 0) + 1
+    return {k: v for k, v in out.items() if v}
 
 
-def lm_bound(plan, m: int):
-    """(bound_ms, bound_by, bytes, ops) of one decode step's kernel
-    GEMMs at M = ``m`` rows: the int8 weights, f32 steps, x and output
-    read or written once against the HBM rate, 2*M*N*K int8 operations
-    against the int8 peak (the MoE experts run no kernel)."""
-    from repro_torch import _tree
-    from repro_torch.core.prequant import is_prequant, lm_eligible
+def mma_per_call(per_call) -> int:
+    """mma-core launches of a call: one after each format pass."""
+    return (per_call.get("bfp_matmul_xformat", 0)
+            + per_call.get("bfp_matmul_pformat", 0))
 
+
+def kernel_gemm_bound(events):
+    """(bound_ms, bound_by, bytes, ops) of the GEMMs that ran on the
+    kernels among tapped engine ``events`` (GEMMs on the float backend,
+    RWKV6's decode linears, and the MoE experts, which are no engine
+    site, are left out): each weight (int8 mantissas and f32 steps, or
+    a float weight), x and output read or written once against the HBM
+    rate, 2*M*N*K int8 operations against the int8 peak."""
     nbytes = ops = 0
-    for path, leaf in _tree.leaves_with_path(plan.params,
-                                             is_leaf=is_prequant):
-        keys = [str(k) for k in path]
-        if not is_prequant(leaf) or not lm_eligible(keys) or "moe" in keys:
+    for ev in events:
+        if ev.backend == "float" or ev.policy is None:
             continue
-        wm, ws = leaf["m"], leaf["s"]
-        k, n = wm.shape[-2:]
-        mats = wm.numel() // (k * n)
-        nbytes += wm.numel() * wm.element_size() + ws.numel() * 4 + \
-            mats * m * (k + n) * 4
-        ops += 2 * m * k * n * mats
+        w = ev.w
+        parts = [w["m"], w["s"]] if isinstance(w, dict) else [w]
+        k, n = parts[0].shape[-2:]
+        m = ev.x.numel() // ev.x.shape[-1]
+        nbytes += sum(p.numel() * p.element_size() for p in parts) + \
+            m * k * 4 + m * n * 4
+        ops += 2 * m * k * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT8_OPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
             ) + (nbytes, ops)
 
 
+def lm_step_bound(plan, cfg, cache, tok, pos):
+    """:func:`kernel_gemm_bound` of one ``decode_step`` (tapped)."""
+    from repro_torch import engine as EG
+    from repro_torch.models.lm import model as LM
+
+    events = []
+    with torch.inference_mode(), EG.taps(events.append):
+        LM.decode_step(plan.params, cfg, cache, tok, pos, plan)
+    return kernel_gemm_bound(events)
+
+
+def profile_step(step, per_mma):
+    """Device ms of one call of ``step()`` by kernel family
+    (``LM_FAMILIES`` and "other"), the fullest of ``PROFILE_TRIES``
+    captures by mma-core events.  Returns (mma events, families, wall
+    ms)."""
+    best = None
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        fam = dict.fromkeys([f for f, _ in LM_FAMILIES] + ["other"], 0.0)
+        n_mma = 0
+        for e in prof.key_averages():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.self_device_time_total <= 0):
+                continue
+            key = next((f for f, kname in LM_FAMILIES if kname in e.key),
+                       "other")
+            fam[key] += e.self_device_time_total / 1e3
+            n_mma += e.count if key == "mma core" else 0
+        if best is None or n_mma > best[0]:
+            best = (n_mma, fam, wall)
+        if n_mma == per_mma:
+            break
+    return best
+
+
+def time_head(label, plan, pplan, x, row, card):
+    """``lm_head`` alone at the step's x (CUDA events): the kernel route
+    the plan gives it, its plain version, and its bound."""
+    from repro_torch import engine as EG
+
+    events = []
+    with torch.inference_mode(), EG.taps(events.append):
+        head = plan.params.get("lm_head", {}).get("w")
+        tied = head is None
+        w = plan.params["embed"]["e"].t() if tied else head
+        y = EG.gemm(x, w, plan, path="lm_head")
+        wp = pplan.params["embed"]["e"].t() if tied else \
+            pplan.params["lm_head"]["w"]
+        yp = EG.gemm(x, wp, pplan, path="lm_head")
+    check(torch.equal(y, yp), f"{label}: lm_head on the kernels differs "
+                              f"from its plain version")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: EG.gemm(x, w, plan, path="lm_head"), 10)
+        plain = cuda_ms(lambda: EG.gemm(x, wp, pplan, path="lm_head"), 3)
+    bms, by, nbytes, _ = kernel_gemm_bound(events[:1])
+    row["lm_head"] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
+                      "bound_by": by, "tied": tied, "m": x.numel() //
+                      x.shape[-1]}
+    print(f"time {label} lm_head ({'tied: float embed.T, patch pass + mma'
+          if tied else 'prequant'}, M = {row['lm_head']['m']}): kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}, "
+          f"{nbytes / 1e9:.4f} GB)  [{card}]", flush=True)
+
+
 def lm_path(label, cfg, n_req, max_new, dev, card, seed, detail,
-            launches):
-    """One LM path of phase 14 (see the module docstring)."""
+            launches, float_sites=(), forward_check=False):
+    """One served LM path of phases 14 and 15 (see the module
+    docstring).  ``float_sites``: the site paths the prequant walk leaves
+    float; ``forward_check``: also hold a forward over B = 2, S = 64 on
+    the kernels ``torch.equal`` to the plain versions, and time it."""
     import statistics
 
     from repro_torch import engine as EG
@@ -1749,14 +1910,17 @@ def lm_path(label, cfg, n_req, max_new, dev, card, seed, detail,
     del params            # the engine holds the prequantized tree
     qparams = eng.params
     sites = eng.plan.sites
-    check(all(s.prequantized and s.backend.name == "pallas"
-              and not s.fallback for s in sites.values()),
-          f"{label}: a site is not prequantized on the kernels: "
-          f"{eng.plan.describe()}")
+    check(all(s.backend.name == "pallas" and not s.fallback
+              and s.prequantized == (p not in float_sites)
+              for p, s in sites.items())
+          and set(float_sites) <= set(sites),
+          f"{label}: a site is not on the kernels, or not prequantized "
+          f"but for {float_sites}: {eng.plan.describe()}")
     g = torch.Generator().manual_seed(seed + 1)
     lens = torch.randint(8, 65, (n_req,), generator=g).tolist()
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
                for n in lens]
+    per_call = lm_launches_per_call(cfg)
 
     def serve(engine, tag):
         reqs = [Request(rid=i, prompt=list(p), max_new=max_new)
@@ -1778,26 +1942,23 @@ def lm_path(label, cfg, n_req, max_new, dev, card, seed, detail,
         check(st["completed"] == len(reqs) and st["failed"] == 0
               and st["float_retries"] == 0 and st["expired"] == 0,
               f"{label} {tag}: serving stats {st}")
-        per = lm_launches_per_call(cfg)
         want = {**dict.fromkeys(counts, 0),
-                "bfp_matmul_prequant": per * engine.ncalls,
-                "bfp_matmul_xformat": per * engine.ncalls}
+                **{k: v * engine.ncalls for k, v in per_call.items()}}
         check(counts == want, f"{label} {tag}: launches {counts} != "
                               f"{want}")
         return [r.out for r in reqs], secs, counts
 
     outs, secs, counts = serve(eng, "continuous")
     launches[label] = counts
-    per = lm_launches_per_call(cfg)
     gen_tokens = n_req * max_new
     row.update(serve_s=secs, calls=eng.ncalls, tokens=gen_tokens,
                prompt_tokens=sum(lens), tokens_per_s=gen_tokens / secs,
-               launches_per_call=per)
+               launches_per_call=per_call)
     print(f"path {label}: {n_req} requests (prompts {min(lens)}-"
           f"{max(lens)} tokens, max_new {max_new}, 4 slots, chunk 8): "
           f"stats {eng.stats}, {eng.ncalls} decode_step calls, launches "
-          f"{({k: v for k, v in counts.items() if v})} = {per} + {per} "
-          f"per call as predicted", flush=True)
+          f"{({k: v for k, v in counts.items() if v})} = {per_call} per "
+          f"call as predicted", flush=True)
 
     # solo serving on fresh engines of the same geometry (the sidecars
     # bound again, not formatted again), then bucket batching
@@ -1837,16 +1998,48 @@ def lm_path(label, cfg, n_req, max_new, dev, card, seed, detail,
     check(lk.shape == (4, 4, 1, cfg.vocab_size)
           and bool(torch.isfinite(lk).all()),
           f"{label}: decode logits not finite of the expected shape")
-    check(torch.equal(lk, lp) and all(torch.equal(ck[k], cp[k])
-                                      for k in ("k", "v")),
+    check(torch.equal(lk, lp) and same_tree(ck, cp, nan_aware=False),
           f"{label}: four decode steps on the kernels differ from the "
-          f"plain versions (max |diff| {diff(lk, lp)})")
+          f"plain versions (max |diff| {diff(lk, lp)}, caches "
+          f"{tree_diff(ck, cp)})")
     print(f"path {label}: every request alone on a fresh engine gave its "
           f"batched tokens; bucket batching ({row['bucket_calls']} calls) "
           f"gave continuous' tokens; 4 decode steps on the kernels "
-          f"torch.equal to the plain versions (logits and bf16 caches)",
-          flush=True)
-    del pplan, runs
+          f"torch.equal to the plain versions (logits and every cache "
+          f"leaf)", flush=True)
+
+    if forward_check:
+        # a forward over B = 2, S = 64 (RWKV6: two WKV chunks)
+        ftoks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g).to(
+            dev)
+        want = lm_launches_per_call(cfg, forward=True)
+        fwd = {}
+        for name, plan in (("kernels", eng.plan), ("plain", pplan)):
+            with torch.inference_mode():
+                sync()
+                K.reset_launch_counts()
+                fwd[name] = LM.forward(plan.params, cfg, ftoks,
+                                       policy=plan)[0]
+                sync()
+                fwd[name + "_counts"] = {k: v for k, v in
+                                         K.launch_counts().items() if v}
+        check(fwd["kernels_counts"] == want and not fwd["plain_counts"],
+              f"{label}: forward launches {fwd['kernels_counts']} != "
+              f"{want}")
+        check(torch.equal(fwd["kernels"], fwd["plain"])
+              and bool(torch.isfinite(fwd["kernels"]).all()),
+              f"{label}: the forward on the kernels differs from the "
+              f"plain versions (max |diff| "
+              f"{diff(fwd['kernels'], fwd['plain'])})")
+        with torch.inference_mode():
+            fms = cuda_ms(lambda: LM.forward(eng.plan.params, cfg, ftoks,
+                                             policy=eng.plan), 3)
+        row.update(forward_launches=want, forward_ms=fms)
+        print(f"path {label}: forward (B = 2, S = 64) on the kernels "
+              f"torch.equal to the plain versions, launches {want} as "
+              f"predicted; {fms:.4f} ms (CUDA events)  [{card}]",
+              flush=True)
+        del fwd
 
     # steady-state decode steps: the median of CUDA-event times, then one
     # step under the profiler (device ms by kernel family)
@@ -1866,33 +2059,15 @@ def lm_path(label, cfg, n_req, max_new, dev, card, seed, detail,
     # device events only (one decode step issues ~1,000 kernels); a
     # capture short of mma-core events is retaken, and the fullest of
     # PROFILE_TRIES kept, its count printed beside the times
-    best = None
-    for _ in range(PROFILE_TRIES):
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng._step(cache, tok, 4)
-            sync()
-            wall = (time.perf_counter() - t0) * 1e3
-        fam = {"mma core": 0.0, "format pass": 0.0, "other": 0.0}
-        n_mma = 0
-        for e in prof.key_averages():
-            if (e.device_type != torch.autograd.DeviceType.CUDA
-                    or e.self_device_time_total <= 0):
-                continue
-            key = ("mma core" if "conv_mma_kernel" in e.key else
-                   "format pass" if "xformat_kernel" in e.key else "other")
-            fam[key] += e.self_device_time_total / 1e3
-            n_mma += e.count if key == "mma core" else 0
-        if best is None or n_mma > best[0]:
-            best = (n_mma, fam, wall)
-        if n_mma == per:
-            break
-    n_mma, fam, wall = best
+    per = mma_per_call(per_call)
+    n_mma, fam, wall = profile_step(lambda: eng._step(cache, tok, 4), per)
     check(2 * n_mma >= per, f"{label}: the profiled step shows {n_mma} mma "
                             f"core launches of {per}")
     devt = sum(fam.values())
-    bms, by, nbytes, ops = lm_bound(eng.plan, 4)
+    bms, by, nbytes, ops = lm_step_bound(eng.plan, cfg, cache, tok, 4)
+    if label in LM_HEAD_TIMED:
+        x = torch.randn((4, 1, cfg.d_model), generator=g).to(dev)
+        time_head(label, eng.plan, pplan, x, row, card)
     peak = torch.cuda.max_memory_allocated() / 1e9
     row.update(step_ms_median=step_ms, step_ms_all=ms,
                profile={"wall_ms": wall, "device_ms": devt,
@@ -1915,7 +2090,201 @@ def lm_path(label, cfg, n_req, max_new, dev, card, seed, detail,
           f"params)  [{card}]", flush=True)
     print(f"memory {label}: peak {peak:.3f} GB allocated  [{card}]",
           flush=True)
-    del eng, qparams, cache, ck, cp
+    del eng, qparams, cache, ck, cp, pplan, runs
+
+
+#: the paths whose ``lm_head`` is timed alone (the tied head's float
+#: ``embed.T``; seamless' head on the tile kernel)
+LM_HEAD_TIMED = ("lm_griffin_width", "lm_seamless_full")
+
+
+def lm_encdec_path(dev, card, seed, detail, launches):
+    """Phase 15's encoder-decoder (see the module docstring)."""
+    import statistics
+
+    from repro_torch import engine as EG
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.policy import PALLAS_TILED
+    from repro_torch.models.lm import model as LM
+    from repro_torch.serve.engine import generate
+
+    label, arch, b, s_enc, s_prompt, max_new = LM_ENCDEC_PATH
+    cfg = ARCHS[arch]
+    sync = torch.cuda.synchronize
+    row = detail[label] = {}
+    pol = PALLAS_TILED.with_(straight_through=False)
+    print(f"path {label}: {arch} at its published configuration "
+          f"({cfg.encoder_layers} + {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}) through serve.generate(enc_feats=): B = {b}, "
+          f"{s_enc} frames, {s_prompt}-token prompts, {max_new} new",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    sync()
+    row["init_s"] = time.perf_counter() - t0
+    row["params"] = LM.param_count(params)
+    t0 = time.perf_counter()
+    plan = EG.bind(params, pol, tree="lm", strict=True, device=dev)
+    sync()
+    row["bind_prequant_s"] = time.perf_counter() - t0
+    del params
+    check(all(s.prequantized and s.backend.name == "pallas"
+              and not s.fallback for s in plan.sites.values()),
+          f"{label}: a site is not prequantized on the kernels: "
+          f"{plan.describe()}")
+    pplan = EG.bind(plan.params, pol.with_(backend="plain"), tree="lm",
+                    strict=True, prequantize=False, device=dev)
+    g = torch.Generator().manual_seed(seed + 2)
+    frames = (torch.randn((b, s_enc, cfg.d_model), generator=g)
+              * 0.5).to(dev)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s_prompt),
+                           generator=g).to(dev)
+
+    per_call = lm_launches_per_call(cfg)
+    calls = s_prompt + max_new - 1
+    enc_per = 7 * cfg.encoder_layers
+    want = {k: v * calls for k, v in per_call.items()}
+    for k in ("bfp_matmul_prequant", "bfp_matmul_xformat"):
+        want[k] += enc_per
+    runs = {}
+    for name, p in (("kernels", plan), ("plain", pplan)):
+        sync()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[name] = generate(p.params, cfg, prompt, max_new, policy=p,
+                              enc_feats=frames, device=dev)
+        sync()
+        runs[name + "_s"] = time.perf_counter() - t0
+        runs[name + "_counts"] = {k: v for k, v in K.launch_counts().items()
+                                  if v}
+    toks, secs = runs["kernels"], runs["kernels_s"]
+    check(runs["kernels_counts"] == want and not runs["plain_counts"],
+          f"{label}: launches {runs['kernels_counts']} != {want}")
+    check(torch.equal(toks, runs["plain"]),
+          f"{label}: generated tokens differ from the plain versions'")
+    launches[label] = {**dict.fromkeys(K.launch_counts(), 0),
+                       **runs["kernels_counts"]}
+    # row independence at this batch geometry: the rows rolled by one
+    # slot give the same tokens.  A row generated alone (B = 1) runs the
+    # float attention's batched products at another batch size, where
+    # cuBLAS may sum in another order (an ulp that flips a BFP block
+    # rounding): printed, not held
+    perm = torch.roll(torch.arange(b, device=dev), 1)
+    rolled = generate(plan.params, cfg, prompt[perm], max_new, policy=plan,
+                      enc_feats=frames[perm], device=dev)
+    check(torch.equal(rolled, toks[perm]),
+          f"{label}: rows rolled by one slot gave {rolled.tolist()}, "
+          f"batched {toks[perm].tolist()}")
+    alone = [torch.equal(generate(plan.params, cfg, prompt[i:i + 1],
+                                  max_new, policy=plan,
+                                  enc_feats=frames[i:i + 1],
+                                  device=dev)[0], toks[i])
+             for i in range(b)]
+    row["rows_alone_equal"] = alone
+    gen_tokens = b * max_new
+    row.update(generate_s=secs, plain_generate_s=runs["plain_s"],
+               tokens=gen_tokens, tokens_per_s=gen_tokens / secs,
+               launches=runs["kernels_counts"], launches_per_call=per_call,
+               calls=calls)
+    print(f"path {label}: generate launches {runs['kernels_counts']} = "
+          f"{enc_per} (prefill_encoder) + {calls} decode_step calls x "
+          f"{per_call} as predicted; tokens torch.equal to the plain "
+          f"versions', and the rows rolled by one slot gave their batched "
+          f"tokens; generated alone (B = 1), {sum(alone)} of {b} rows gave "
+          f"their batched tokens", flush=True)
+
+    # the encoder output and four decode steps: kernels against plain
+    enc, steps = {}, {}
+    for name, p in (("kernels", plan), ("plain", pplan)):
+        with torch.inference_mode():
+            enc[name] = LM.prefill_encoder(p.params, cfg, frames, p)
+            cache = LM.init_cache(cfg, b, 64, device=dev)
+            cache["enc_out"] = enc[name]
+            lgs = []
+            for i in range(4):
+                lg, cache = LM.decode_step(p.params, cfg, cache,
+                                           prompt[:, i:i + 1], i, p)
+                lgs.append(lg)
+        steps[name] = (torch.stack(lgs), cache)
+    (lk, ck), (lp, cp) = steps["kernels"], steps["plain"]
+    check(torch.equal(enc["kernels"], enc["plain"])
+          and torch.equal(lk, lp) and same_tree(ck, cp, nan_aware=False)
+          and bool(torch.isfinite(lk).all()),
+          f"{label}: prefill_encoder or 4 decode steps on the kernels "
+          f"differ from the plain versions (max |diff| {diff(lk, lp)})")
+    print(f"path {label}: prefill_encoder and 4 decode steps on the "
+          f"kernels torch.equal to the plain versions (encoder output, "
+          f"logits, every cache leaf)", flush=True)
+
+    def step(c=ck):
+        with torch.inference_mode():
+            return LM.decode_step(plan.params, cfg, c, prompt[:, :1], 4,
+                                  plan)
+
+    with torch.inference_mode():
+        enc_ms = cuda_ms(lambda: LM.prefill_encoder(plan.params, cfg,
+                                                    frames, plan), 3)
+    step()
+    sync()
+    ms = []
+    for _ in range(LM_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        stop.record()
+        sync()
+        ms.append(start.elapsed_time(stop))
+    step_ms = statistics.median(ms)
+    per = mma_per_call(per_call)
+    n_mma, fam, wall = profile_step(step, per)
+    check(2 * n_mma >= per, f"{label}: the profiled step shows {n_mma} mma "
+                            f"core launches of {per}")
+    devt = sum(fam.values())
+    bms, by, nbytes, ops = lm_step_bound(plan, cfg, ck, prompt[:, :1], 4)
+    time_head(label, plan, pplan, torch.randn(
+        (b, 1, cfg.d_model), generator=g).to(dev), row, card)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    row.update(step_ms_median=step_ms, step_ms_all=ms, encoder_ms=enc_ms,
+               profile={"wall_ms": wall, "device_ms": devt,
+                        "mma_events": n_mma, **fam},
+               bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+               bound_ops=ops, peak_gb=peak)
+    print(f"profile {label} decode step (M = {b}, cross-attention K/V over "
+          f"{s_enc} frames a row): wall {wall:.4f} ms, device {devt:.4f} "
+          f"ms (busy {100 * devt / wall:.1f}%; {n_mma} of {per} mma-core "
+          f"launches captured): "
+          f"{json.dumps({k: round(v, 4) for k, v in fam.items()})}; "
+          f"kernel GEMMs' bound {bms:.4f} ms ({by}: {nbytes / 1e9:.4f} GB, "
+          f"{ops / 1e9:.3f} GOP)  [{card}]", flush=True)
+    print(f"time {label}: {gen_tokens / secs:.2f} tokens/s ({gen_tokens} "
+          f"generated in {secs:.3f} s, prefill_encoder included; plain "
+          f"versions {runs['plain_s']:.3f} s)  [{card}]", flush=True)
+    print(f"time {label}: median decode step {step_ms:.4f} ms (CUDA "
+          f"events, {LM_TIMED_STEPS} steps, M = {b}); prefill_encoder "
+          f"{enc_ms:.4f} ms (M = {b * s_enc})  [{card}]", flush=True)
+    print(f"time {label}: init {row['init_s']:.3f} s, bind + prequant "
+          f"{row['bind_prequant_s']:.3f} s ({row['params'] / 1e9:.4f} B "
+          f"params)  [{card}]", flush=True)
+    print(f"memory {label}: peak {peak:.3f} GB allocated  [{card}]",
+          flush=True)
+    del plan, pplan, steps, enc, ck, cp
+
+
+def lm_path_header(label, arch, cfg, layers):
+    print(f"path {label}: {arch} at published width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, kv {cfg.n_kv_heads}, "
+          f"head_dim {cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+          f"{', %d experts top-%d' % (cfg.n_experts, cfg.top_k) if cfg.is_moe else ''}"
+          f"{', LRU %d, window %d, tied embeddings' % (cfg.lru_width, cfg.sliding_window) if cfg.block_pattern else ''}"
+          f"), {cfg.n_layers} layers"
+          f"{' (reduced depth: run time)' if layers else ''}"
+          f"{', capacity factor %g (no drops)' % cfg.capacity_factor if layers and cfg.is_moe else ''}",
+          flush=True)
 
 
 def lm_phase(dev, card, detail, launches, seed):
@@ -1932,14 +2301,7 @@ def lm_phase(dev, card, detail, launches, seed):
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers,
                                       capacity_factor=float(cfg.n_experts))
-        print(f"path {label}: {arch} at published width (d_model "
-              f"{cfg.d_model}, {cfg.n_heads} heads, kv {cfg.n_kv_heads}, "
-              f"head_dim {cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
-              f"{', %d experts top-%d' % (cfg.n_experts, cfg.top_k) if cfg.is_moe else ''}"
-              f"), {cfg.n_layers} layers"
-              f"{' (reduced depth: run time)' if layers else ''}"
-              f"{', capacity factor %g (no drops)' % cfg.capacity_factor if layers else ''}",
-              flush=True)
+        lm_path_header(label, arch, cfg, layers)
         lm_path(label, cfg, n_req, max_new, dev, card, seed, detail,
                 launches)
         torch.cuda.empty_cache()
@@ -1963,6 +2325,34 @@ def lm_phase(dev, card, detail, launches, seed):
         print(f"cli {' '.join(argv)}: rc 0 in {secs:.2f} s: {lines[-1]}  "
               f"[{card}]", flush=True)
     print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+
+
+def lm_recurrent_phase(dev, card, detail, launches, seed):
+    """Phase 15: the recurrent LM families and the encoder-decoder (see
+    the module docstring)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+
+    register_plain_backend()
+    t15 = time.perf_counter()
+    print(card_line(), flush=True)      # the card under phase 15's numbers
+    for label, arch, layers, n_req, max_new, float_sites in \
+            LM_RECURRENT_PATHS:
+        cfg = ARCHS[arch]
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        lm_path_header(label, arch, cfg, layers)
+        t0 = time.perf_counter()
+        lm_path(label, cfg, n_req, max_new, dev, card, seed, detail,
+                launches, float_sites=float_sites, forward_check=True)
+        detail[label]["path_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_encdec_path(dev, card, seed, detail, launches)
+    detail[LM_ENCDEC_PATH[0]]["path_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
 
 
 def pol_lenet():
@@ -3302,7 +3692,10 @@ def main() -> int:
     # -- 14. the LM serving path ---------------------------------------------
     lm_phase(dev, card, detail, launches, args.seed)
 
-    # -- 15. results ---------------------------------------------------------
+    # -- 15. the recurrent LM families and the encoder-decoder -------------
+    lm_recurrent_phase(dev, card, detail, launches, args.seed)
+
+    # -- 16. results ---------------------------------------------------------
     kernels = []
     for name in SOURCES:
         path = next(p for p in launches if launches[p][name] > 0)

@@ -62,6 +62,12 @@ def prequant_leaf(w: torch.Tensor, policy: BFPPolicy) -> Any:
     bk = policy.block_k or k
     if k % bk:
         return w
+    if w.numel() == 0:
+        # an empty stack (the hybrid's periods below one period): the
+        # sidecars of no matrix, in the dtypes a matrix would get
+        one = prequant_leaf(w.new_zeros((k, n)), policy)
+        return {"m": one["m"].new_empty((*lead, k, n)),
+                "s": one["s"].new_empty((*lead, k // bk, n))}
     ms, ss = [], []
     for mat in w.reshape(-1, k, n):
         blk = bfp.bfp_quantize_matrix(mat, policy.l_w, "i", bfp.Scheme.TILED,

@@ -11,8 +11,12 @@ checkpoint); ``--scale smoke`` (the default) is the reference's reduced
 config (4 layers, d_model 128, d_ff 256, vocab 512).  ``--bfp`` is the
 paper's policy (EQ4, L = 8) on the emulated datapath and
 ``--bfp-weights`` stores weights as int8 mantissas with TILED block-32
-steps, as in ``repro``.  The attention families (dense, vlm, moe) serve;
-the recurrent ones and the encoder-decoder are the next slice.
+steps, as in ``repro``.  Every family serves: dense, vlm, moe, ssm
+(``--arch rwkv6-3b``) and hybrid (``--arch recurrentgemma-9b``; at smoke
+scale 4 layers: one (rec, rec, attn) period and one rec block).  The
+encoder-decoder (``--arch seamless-m4t-medium``) fails here as in
+``repro``: ``ServeEngine`` refuses it, and it is served through
+``repro_torch.serve.engine.generate(enc_feats=)``.
 """
 from __future__ import annotations
 

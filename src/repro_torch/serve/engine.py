@@ -1,10 +1,12 @@
 """Batched LM serving of the port (counterpart of ``repro.serve.engine``):
-prefill + decode with KV caches.
+prefill + decode with KV caches and recurrent states.
 
-``generate`` drives ``decode_step`` over N tokens, greedy or sampled.
-``ServeEngine`` adds iteration-level (continuous) batching: a slot table
-where finished sequences are replaced by queued requests between decode
-steps, with prefill CHUNKED INTO THE STEP LOOP (an admission consumes at
+``generate`` drives ``decode_step`` over N tokens, greedy or sampled; an
+encoder-decoder runs its encoder once at ``prefill`` (``enc_feats=``).
+``ServeEngine`` (every family but the encoder-decoder) adds
+iteration-level (continuous) batching: a slot table where finished
+sequences are replaced by queued requests between decode steps, with
+prefill CHUNKED INTO THE STEP LOOP (an admission consumes at
 most ``prefill_chunk`` prompt tokens per engine step, so a long prompt
 never stalls in-flight decodes); ``batching="bucket"`` keeps the
 blocking-prefill baseline.  Weight pre-quantization (``prequant=``, or a
@@ -18,9 +20,11 @@ honour the policy.
 Where the reference jits the whole-batch step, the port runs
 ``decode_step`` eagerly under ``torch.inference_mode()`` (tap events
 suppressed, as the reference's compiled step emits none); ``prefill`` is
-a Python loop over ``decode_step``.  Greedy decoding is the reference's
-token for token; ``temperature > 0`` samples from a ``torch.Generator``
-(``jax.random`` streams cannot be reproduced).
+a Python loop over ``decode_step`` (so the hybrid's conv history, which
+the first step promotes from bf16 to f32, needs no fixed carry type:
+the reference's scan cannot carry it, R8).  Greedy decoding is the
+reference's token for token; ``temperature > 0`` samples from a
+``torch.Generator`` (``jax.random`` streams cannot be reproduced).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import _tree
 from repro_torch import engine as EG
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import LMConfig
@@ -45,21 +50,21 @@ from repro_torch.serve.slots import SlotTable
 __all__ = ["prefill", "generate", "ServeEngine", "Request"]
 
 
-def _no_encdec(cfg: LMConfig, enc_feats) -> None:
-    if cfg.is_encdec or enc_feats is not None:
-        raise NotImplementedError("encoder-decoder serving (prefill_encoder, "
-                                  "enc_feats=) is the next LM slice "
-                                  "(ROADMAP Queue 1)")
-
-
 def prefill(params, cfg: LMConfig, tokens: torch.Tensor, cache,
             policy: PolicyLike = None, enc_feats=None,
             device: DeviceLike = "cuda"):
     """Sequential prefill through ``decode_step`` (one call per prompt
-    position).  tokens: [B, S_prompt].  Returns (cache, last_logits)."""
-    _no_encdec(cfg, enc_feats)
+    position; state-correct for every family).  tokens: [B, S_prompt].
+    An encoder-decoder with ``enc_feats`` [B, S_enc, D] runs its encoder
+    first (``prefill_encoder``) into the cache's ``"enc_out"``.  Returns
+    (cache, last_logits)."""
     dev = resolve_device(device)
     tokens = torch.as_tensor(tokens).to(dev)
+    if cfg.is_encdec and enc_feats is not None:
+        with torch.inference_mode():
+            enc_out = Mdl.prefill_encoder(
+                params, cfg, torch.as_tensor(enc_feats).to(dev), policy)
+        cache = dict(cache, enc_out=enc_out)
     logits = torch.zeros((tokens.shape[0], 1, cfg.vocab_size),
                          dtype=torch.float32, device=dev)
     with torch.inference_mode():
@@ -75,7 +80,9 @@ def generate(params, cfg: LMConfig, prompt, max_new: int,
              max_len: Optional[int] = None,
              device: DeviceLike = "cuda") -> torch.Tensor:
     """Greedy (``temperature <= 0``) or sampled generation.  Returns
-    [B, max_new] token ids on ``device``."""
+    [B, max_new] token ids on ``device``.  ``enc_feats``: the
+    encoder-decoder's frame embeddings [B, S_enc, D] (see
+    :func:`prefill`)."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt).to(dev)
     b, s = prompt.shape
@@ -247,14 +254,21 @@ class ServeEngine:
 
     def _merge_rows(self, old, new, rows):
         """Keep only slot ``rows`` of the stepped cache; every other
-        slot's rows come from ``old`` (the slot axis is dim 1 of every
-        cache leaf)."""
+        slot's rows come from ``old``.  The slot axis is dim 1 of every
+        cache leaf, at any depth of the tree (the hybrid's cache nests
+        ``{"rec1": {"h", "hist"}, ...}``); each leaf's dtype is the
+        promotion of both, as ``jnp.where`` gives it (a bf16 conv
+        history merged with a stepped f32 one comes back f32)."""
         sel = torch.zeros(self.slots, dtype=torch.bool)
         sel[list(rows)] = True
         sel = sel.to(self.device)
-        return {k: torch.where(sel.reshape(1, self.slots,
-                                           *[1] * (o.ndim - 2)), new[k], o)
-                for k, o in old.items()}
+
+        def one(o, n):
+            dt = torch.promote_types(o.dtype, n.dtype)
+            keep = sel.reshape(1, self.slots, *[1] * (o.ndim - 2))
+            return torch.where(keep, n.to(dt), o.to(dt))
+
+        return _tree.tree_map(one, old, new)
 
     def _tokens(self, tok_of: Dict[int, int]) -> torch.Tensor:
         """[slots, 1] token ids: ``tok_of[s]`` in row s, 0 elsewhere."""

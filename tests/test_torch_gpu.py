@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.policy import PALLAS_TILED, TPU_TILED
 from repro_torch.core.prequant import (prequant_act, prequant_conv_leaf,
                                        prequant_leaf)
+from repro_torch import _tree
 from repro_torch import engine as EG
 from repro_torch.engine import PolicyMap
 from repro_torch import kernels as K
@@ -1053,3 +1054,106 @@ def test_cuda_lm_decode_and_serving_match_plain_versions(cuda, arch,
     solo.run()
     assert r.out == outs["kernels"][1]
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,layers,per_step,fwd", [
+    # RWKV6's decode drops the policy (only lm_head on the kernels); its
+    # forward runs 10 linears a layer and lm_head
+    ("rwkv6-3b", 2, {"bfp_matmul_prequant": 1}, 2 * 10 + 1),
+    # 4 rec blocks (8 linears), 1 attention block (7), the tied head on
+    # the float embed.T (bfp_matmul after a patch pass)
+    ("recurrentgemma-9b", 5, {"bfp_matmul_prequant": 39, "bfp_matmul": 1},
+     40),
+    # 11 linears a decoder layer and lm_head
+    ("seamless-m4t-medium", 2, {"bfp_matmul_prequant": 23}, 7 + 23)])
+def test_cuda_recurrent_and_encdec_lms_match_plain_versions(cuda, arch,
+                                                            layers,
+                                                            per_step, fwd):
+    """A reduced recurrent LM or encoder-decoder (d_model 64) bound at
+    ``PALLAS_TILED`` (block 32, prequantized) on the kernels: a forward
+    and four decode steps ``torch.equal`` to the plain versions (logits
+    and every cache leaf), the kernel launches a step as counted from the
+    code, and served (or generated) tokens equal to the plain-version
+    ones and to solo serving (the encoder-decoder: its rows rolled)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.lm import model as LM
+    from repro_torch.serve.engine import Request, ServeEngine, generate
+
+    _register_plain_backend()
+    cfg = reduced(ARCHS[arch], n_layers=layers, d_model=64, d_ff=128,
+                  vocab=256)
+    params = LM.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=cuda)
+    pol = PALLAS_TILED.with_(block_k=32, straight_through=False)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 256, (4, 8), generator=g).to(cuda)
+    enc = (torch.randn((4, cfg.enc_seq_stub, cfg.d_model), generator=g)
+           .to(cuda) if cfg.is_encdec else None)
+    runs = {}
+    for name in ("kernels", "plain"):
+        plan = EG.bind(params, pol.with_(backend="pallas" if name ==
+                                         "kernels" else "plain"),
+                       tree="lm", strict=True, device=cuda)
+        with torch.inference_mode():
+            K.reset_launch_counts()
+            flog = LM.forward(plan.params, cfg, toks, enc_feats=enc,
+                              policy=plan)[0]
+            nf = K.launch_counts()
+            cache = LM.init_cache(cfg, 4, 16, device=cuda)
+            if enc is not None:
+                cache["enc_out"] = LM.prefill_encoder(plan.params, cfg, enc,
+                                                      plan)
+            K.reset_launch_counts()
+            logits = []
+            for i in range(4):
+                lg, cache = LM.decode_step(plan.params, cfg, cache,
+                                           toks[:, i:i + 1], i, plan)
+                logits.append(lg)
+        torch.cuda.synchronize()
+        runs[name] = (flog, torch.stack(logits), cache, nf,
+                      K.launch_counts())
+    (fk, lk, ck, nfk, nk), (fp, lp, cp, _, npl) = (runs["kernels"],
+                                                   runs["plain"])
+    assert torch.equal(fk, fp) and torch.equal(lk, lp)
+    assert all(torch.equal(a, b) for a, b in zip(_tree.flatten(ck)[0],
+                                                  _tree.flatten(cp)[0]))
+    assert sum(npl.values()) == 0
+    assert {k: v for k, v in nk.items() if v and not k.endswith(
+        "format")} == {k: 4 * v for k, v in per_step.items()}
+    assert sum(v for k, v in nfk.items() if not k.endswith("format")) == fwd
+    prompts = [[1, 2, 3], [9, 8, 7, 6, 5], [4, 4]]
+    outs = {}
+    for name, be in (("kernels", "pallas"), ("plain", "plain")):
+        p = pol.with_(backend=be)
+        if cfg.is_encdec:
+            outs[name] = generate(params, cfg, toks[:, :4], 5, policy=p,
+                                  enc_feats=enc, max_len=16,
+                                  device=cuda).tolist()
+            continue
+        eng = ServeEngine(params, cfg, slots=4, max_len=32, policy=p,
+                          prequant=p, strict_backend=True, device=cuda)
+        rs = [Request(rid=i, prompt=pr, max_new=5)
+              for i, pr in enumerate(prompts)]
+        for r in rs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.error is None for r in rs)
+        outs[name] = [r.out for r in rs]
+    assert outs["kernels"] == outs["plain"]
+    if cfg.is_encdec:
+        # rows rolled by one slot (the batch geometry kept: at another
+        # batch size cuBLAS may sum the float attention in another order)
+        perm = torch.roll(torch.arange(4, device=cuda), 1)
+        rolled = generate(params, cfg, toks[perm, :4], 5, policy=pol,
+                          enc_feats=enc[perm], max_len=16, device=cuda)
+        assert rolled.tolist() == [outs["kernels"][i] for i in
+                                   perm.tolist()]
+        return
+    solo = ServeEngine(params, cfg, slots=4, max_len=32, policy=pol,
+                       prequant=pol, device=cuda)
+    r = Request(rid=9, prompt=prompts[1], max_new=5)
+    solo.submit(r)
+    solo.run()
+    assert r.out == outs["kernels"][1]

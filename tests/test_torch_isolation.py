@@ -225,3 +225,40 @@ def test_lm_entry_points_need_cuda_unless_asked(monkeypatch):
     serve_cli.main(["--arch", "olmoe-1b-7b", "--requests", "1",
                     "--max-new", "2", "--bfp", "--bfp-weights",
                     "--device", "cpu"])
+
+
+def test_recurrent_and_encdec_entry_points_need_cuda_unless_asked(
+        monkeypatch):
+    """The recurrent families (``models/lm/rwkv6.py``,
+    ``models/lm/griffin.py``) and the encoder-decoder default to the card
+    like the rest of the LM slice; asked for explicitly, the CPU serves
+    them (the encoder-decoder through ``generate(enc_feats=)``)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.lm import model as lm
+    from repro_torch.serve import engine as SE
+
+    names = {f.relative_to(REPO).as_posix() for f in _port_files()}
+    assert {"src/repro_torch/models/lm/rwkv6.py",
+            "src/repro_torch/models/lm/griffin.py"} <= names
+    gen = torch.Generator().manual_seed(0)
+    cases = []
+    for arch, layers in (("rwkv6-3b", 1), ("recurrentgemma-9b", 3),
+                         ("seamless-m4t-medium", 2)):
+        cfg = reduced(ARCHS[arch], n_layers=layers, d_model=32, d_ff=32,
+                      vocab=64)
+        enc = (torch.zeros((1, cfg.enc_seq_stub, cfg.d_model))
+               if cfg.is_encdec else None)
+        cases.append((cfg, lm.init_params(cfg, gen, device="cpu"), enc))
+    prompt = torch.tensor([[1, 2]])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cfg, params, enc in cases:
+        for call in (lambda: lm.init_params(cfg, gen),
+                     lambda: lm.init_cache(cfg, 1, 8),
+                     lambda: SE.generate(params, cfg, prompt, 2,
+                                         enc_feats=enc)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        out = SE.generate(params, cfg, prompt, 2, enc_feats=enc,
+                          device="cpu")
+        assert out.shape == (1, 2) and out.device.type == "cpu"

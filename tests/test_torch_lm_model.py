@@ -26,13 +26,11 @@ from repro.models.lm import common as RC
 from repro.models.lm import model as RM
 from repro.models.lm import moe as RMOE
 from repro_torch import _tree
-from repro_torch.configs import base as PB
-from repro_torch.configs import registry as PR
 from repro_torch.models.lm import common as PC
 from repro_torch.models.lm import model as PM
 from repro_torch.models.lm import moe as PMOE
 from test_torch_util import normal, t
-from torch_lm_common import (ARCH7, cfgs, max_rel, port_params,
+from torch_lm_common import (ARCH7, ARCH10, cfgs, max_rel, port_params,
                              ref_params_np, tokens)
 
 FLOAT_TOL = 1e-5
@@ -199,11 +197,13 @@ def test_top_k_ties_take_the_lower_index():
 
 
 def test_init_params_shapes_and_unported_families():
-    """The port's own seeded init has the reference's tree and shapes;
-    the recurrent families and the encoder-decoder raise, naming the
-    next slice."""
+    """The port's own seeded init has the reference's tree and shapes for
+    all ten architectures: the attention families and, ported since, the
+    recurrent families (rwkv6, the hybrid's empty period stack and
+    ``rem`` list at 2 layers) and the encoder-decoder; so does the
+    decode cache (paths, shapes, dtypes)."""
     gen = torch.Generator().manual_seed(0)
-    for arch in ARCH7:
+    for arch in ARCH10:
         rcfg, pcfg = cfgs(arch)
         shapes = jax.eval_shape(lambda k: RM.init_params(rcfg, k),
                                 jax.random.PRNGKey(0))
@@ -213,9 +213,11 @@ def test_init_params_shapes_and_unported_families():
                _tree.leaves_with_path(PM.init_params(pcfg, gen,
                                                      device="cpu"))]
         assert got == want, arch
-    for arch in ("rwkv6-3b", "recurrentgemma-9b", "seamless-m4t-medium"):
-        cfg = PB.reduced(PR.ARCHS[arch])
-        with pytest.raises(NotImplementedError, match="next LM slice"):
-            PM.init_params(cfg, gen, device="cpu")
-        with pytest.raises(NotImplementedError, match="next LM slice"):
-            PM.init_cache(cfg, 1, 8, device="cpu")
+        cache = jax.eval_shape(lambda: RM.init_cache(rcfg, 2, 8))
+        want = [(jax.tree_util.keystr(pth), tuple(s.shape), str(s.dtype))
+                for pth, s in jax.tree_util.tree_leaves_with_path(cache)]
+        got = [(_tree.keystr(pth), tuple(v.shape),
+                str(v.dtype).split(".")[-1]) for pth, v in
+               _tree.leaves_with_path(PM.init_cache(pcfg, 2, 8,
+                                                    device="cpu"))]
+        assert got == want, arch

@@ -2,7 +2,7 @@
 tests here).
 
 Both packages build the same reduced configs (2 layers, d_model 64,
-d_ff 128, vocab 256) of the seven attention-family architectures.  The
+d_ff 128, vocab 256) of the ten architectures.  The
 reference's parameters come from one jitted ``repro`` ``init_params``
 per architecture, exported as numpy and loaded into the port with
 ``convert.params_from_numpy``: the stacked layout is the same, so the
@@ -31,6 +31,11 @@ from test_torch_util import to_numpy_tree
 #: (mixtral with sliding windows, olmoe)
 ARCH7 = ("tinyllama-1.1b", "mistral-nemo-12b", "minicpm-2b", "qwen1.5-4b",
          "qwen2-vl-2b", "mixtral-8x7b", "olmoe-1b-7b")
+#: the recurrent families, ssm (rwkv6) and hybrid (recurrentgemma: at 2
+#: layers no (rec, rec, attn) period and a remainder of two rec blocks),
+#: and the encoder-decoder (seamless: 1 encoder layer at 2 decoder layers)
+ARCH3 = ("rwkv6-3b", "recurrentgemma-9b", "seamless-m4t-medium")
+ARCH10 = ARCH7 + ARCH3
 SMALL = dict(n_layers=2, d_model=64, d_ff=128, vocab=256)
 
 
@@ -41,18 +46,33 @@ def cfgs(arch: str, **over):
             PB.reduced(PR.ARCHS[arch], **kw))
 
 
-@functools.lru_cache(maxsize=None)
-def ref_params_np(arch: str, seed: int = 0):
+def ref_params_np(arch: str, seed: int = 0, n_layers: int = 2):
     """The reference's seeded params of ``arch`` (one jitted init), as a
-    tree of numpy arrays."""
-    cfg = cfgs(arch)[0]
+    tree of numpy arrays.  The hybrid's 2- and 3-layer trees are cut from
+    its 5-layer tree (one (rec, rec, attn) period and a remainder of two
+    rec blocks): no period and the remainder, or the period and no
+    remainder — the trees the reference builds for those depths, from
+    one init compile instead of three."""
+    if RR.ARCHS[arch].block_pattern and n_layers in (2, 3):
+        p = _ref_params_np(arch, seed, 5)
+        if n_layers == 3:
+            return {**p, "rem": []}
+        return {**p, "periods": jax.tree_util.tree_map(lambda a: a[:0],
+                                                       p["periods"])}
+    return _ref_params_np(arch, seed, n_layers)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_params_np(arch: str, seed: int, n_layers: int):
+    cfg = cfgs(arch, n_layers=n_layers)[0]
     p = jax.jit(lambda k: RM.init_params(cfg, k))(jax.random.PRNGKey(seed))
     return to_numpy_tree(p)
 
 
-def port_params(arch: str, seed: int = 0):
+def port_params(arch: str, seed: int = 0, n_layers: int = 2):
     """The same params as the port's tree of CPU tensors."""
-    return params_from_numpy(ref_params_np(arch, seed), device="cpu")
+    return params_from_numpy(ref_params_np(arch, seed, n_layers),
+                             device="cpu")
 
 
 def tokens(b: int, s: int, vocab: int, seed: int = 0) -> np.ndarray:
@@ -113,22 +133,44 @@ def check_bfp_logits(port, ref) -> None:
     assert (p.argmax(-1) == np.asarray(ref).argmax(-1)).mean() >= BFP_TOP1
 
 
-def port_bfp_run(arch: str, n_decode: int = 4):
+def enc_frames(arch: str, n_layers: int = 2):
+    """The encoder-decoder's seeded frame embeddings [2, S_enc, D] at the
+    test size (None for the other families)."""
+    cfg = cfgs(arch, n_layers=n_layers)[1]
+    if not cfg.is_encdec:
+        return None
+    return (np.random.default_rng(5).standard_normal(
+        (2, cfg.enc_seq_stub, cfg.d_model)) * 0.5).astype(np.float32)
+
+
+def port_bfp_run(arch: str, n_decode: int = 4, n_layers: int = 2,
+                 f32_cache: bool = False):
     """Bind the port at the test policy (prequantized) and run one
-    forward (batch 2, 12 tokens) and ``n_decode`` decode steps, tapping
-    every GEMM.  Returns (plan, events, forward logits, decode logits)."""
+    forward (batch 2, 12 tokens) and ``n_decode`` decode steps from a
+    bf16 cache (``f32_cache``: f32), tapping every GEMM (the
+    encoder-decoder: over ``enc_frames``, its decode steps after
+    ``prefill_encoder``).  Returns (plan, events, forward logits, decode
+    logits)."""
     from repro_torch import engine as PEG
     from repro_torch.core.policy import PALLAS_TILED
     from repro_torch.models.lm import model as PM
 
-    pcfg = cfgs(arch)[1]
+    pcfg = cfgs(arch, n_layers=n_layers)[1]
     pol = PALLAS_TILED.with_(block_k=BLOCK, straight_through=False)
-    plan = PEG.bind(port_params(arch), pol, tree="lm", device="cpu")
+    plan = PEG.bind(port_params(arch, n_layers=n_layers), pol, tree="lm",
+                    device="cpu")
     toks = torch.from_numpy(tokens(2, 12, pcfg.vocab_size, seed=1))
+    enc = enc_frames(arch, n_layers)
+    enc = None if enc is None else torch.from_numpy(enc)
     events = []
     with torch.inference_mode(), PEG.taps(events.append):
-        flog, _ = PM.forward(plan.params, pcfg, toks, policy=plan)
-        cache = PM.init_cache(pcfg, 2, 16, device="cpu")
+        flog, _ = PM.forward(plan.params, pcfg, toks, enc_feats=enc,
+                             policy=plan)
+        cache = PM.init_cache(pcfg, 2, 16, torch.float32 if f32_cache
+                              else torch.bfloat16, device="cpu")
+        if enc is not None:
+            cache["enc_out"] = PM.prefill_encoder(plan.params, pcfg, enc,
+                                                  plan)
         dlog = []
         for i in range(n_decode):
             lg, cache = PM.decode_step(plan.params, pcfg, cache,
@@ -142,11 +184,21 @@ def _wkey(w):
     return m.data_ptr(), tuple(m.shape), tuple(m.stride())
 
 
-def site_groups(events):
+def _shape_key(x, w):
+    """A group of same-shaped GEMMs (one vmapped reference call, one
+    compile): x's rows and w's shapes, whatever their paths."""
+    ws = tuple(sorted((k, tuple(v.shape)) for k, v in w.items())) \
+        if isinstance(w, dict) else tuple(w.shape)
+    return (tuple(x.shape), ws)
+
+
+def site_groups(events, by_shape: bool = False):
     """BFP events grouped per executed weight (one layer's matrix) and
     then per site path: {path: [(x rows [M, K], w, y rows [M, N]), ...
     one per layer]}, each layer's rows concatenated over every call in
-    call order.  Float events (the MoE router) are left out."""
+    call order.  Float events (the MoE router, the float backend) are
+    left out.  ``by_shape``: group by shapes instead (the recurrent
+    families' linears pass no path; fewer reference compiles)."""
     per_w = {}
     for ev in events:
         if ev.policy is None:
@@ -157,7 +209,9 @@ def site_groups(events):
         ys.append(ev.y.reshape(-1, ev.y.shape[-1]))
     out = {}
     for (path, _), (xs, w, ys) in per_w.items():
-        out.setdefault(path, []).append((torch.cat(xs), w, torch.cat(ys)))
+        x = torch.cat(xs)
+        key = _shape_key(x, w) if by_shape else path
+        out.setdefault(key, []).append((x, w, torch.cat(ys)))
     return out
 
 
@@ -171,7 +225,7 @@ def check_sites_against_repro(groups) -> int:
     from test_torch_util import assert_bits_equal
 
     pol = R_TILED.with_(block_k=BLOCK, straight_through=False)
-    paths = sorted(groups)
+    paths = sorted(groups, key=str)
 
     def np_w(w):
         if isinstance(w, dict):
@@ -191,32 +245,38 @@ def check_sites_against_repro(groups) -> int:
     return len(paths)
 
 
-def ref_bfp_logits(arch: str, n_decode: int = 4):
+def ref_bfp_logits(arch: str, n_decode: int = 4, n_layers: int = 2,
+                   f32_cache: bool = False):
     """The reference's forward and decode logits under the same policy
     on its emulated backend (the integer datapath its Pallas kernels
-    match bit for bit), jitted."""
+    match bit for bit), jitted (``f32_cache`` as in
+    :func:`port_bfp_run`)."""
     from repro import engine as REG
     from repro.core.policy import TPU_TILED as R_TILED
 
-    rcfg = cfgs(arch)[0]
+    rcfg = cfgs(arch, n_layers=n_layers)[0]
     pol = R_TILED.with_(block_k=BLOCK, straight_through=False)
     toks = tokens(2, 12, rcfg.vocab_size, seed=1)
 
-    def run(p, tk):
+    def run(p, tk, enc):
         plan = REG.bind(p, pol, tree="lm", prequantize=False)
-        flog, _ = RM.forward(p, rcfg, tk, policy=plan)
+        flog, _ = RM.forward(p, rcfg, tk, enc_feats=enc, policy=plan)
 
         def body(c, i):
             lg, c = RM.decode_step(p, rcfg, c, jax.lax.dynamic_slice_in_dim(
                 tk, i, 1, 1), i.astype(jax.numpy.int32), plan)
             return c, lg[:, 0]
-        _, dlog = jax.lax.scan(body, RM.init_cache(rcfg, 2, 16),
-                               jax.numpy.arange(n_decode))
+        cache = RM.init_cache(rcfg, 2, 16, jax.numpy.float32 if f32_cache
+                              else jax.numpy.bfloat16)
+        if enc is not None:
+            cache["enc_out"] = RM.prefill_encoder(p, rcfg, enc, plan)
+        _, dlog = jax.lax.scan(body, cache, jax.numpy.arange(n_decode))
         return flog, dlog
 
     from repro.core.prequant import quantize_param_tree
-    q = jax.jit(lambda p: quantize_param_tree(p, pol))(ref_params_np(arch))
-    f, d = jax.jit(run)(q, toks)
+    q = jax.jit(lambda p: quantize_param_tree(p, pol))(
+        ref_params_np(arch, n_layers=n_layers))
+    f, d = jax.jit(run)(q, toks, enc_frames(arch, n_layers))
     return np.asarray(f), np.asarray(d)
 
 
