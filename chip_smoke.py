@@ -244,7 +244,38 @@ raises (and so exits non-zero) when it fails:
    cuBLAS float GEMMs, other) beside the bound of the GEMMs that ran on
    the kernels in it (tapped: float-backend GEMMs left out), init and
    bind + prequant seconds, and peak memory;
-16. a JSON line of per-kernel numbers, then the result line
+16. LM training (``train.step``, ``train.loop``, ``data.pipeline
+   .lm_batch``, ``launch.train``).  ``train_tinyllama_full``:
+   TinyLlama-1.1B at its published configuration, seeded on the card,
+   ``make_train_step`` at ``PALLAS_TILED`` without straight-through
+   (every forward GEMM and both backward GEMMs of each of the 155 linear
+   sites on the kernels: 465 ``bfp_matmul`` launches a step, each after a
+   patch format pass, ``lm_train_launches``), ``cosine_schedule(3e-4,
+   20, 100)``, batches of the port's ``lm_batch`` at B = 8, S = 256; two
+   steps, each ``torch.equal`` to the same step through the plain
+   versions (params, AdamW moments, step, metrics) with its launches
+   checked; then the median of 5 timed steps (CUDA events), tokens/s,
+   one profiled step by kernel family beside the bound of its kernel
+   GEMMs, init seconds and peak memory.
+   ``train_olmoe_width``: OLMoE-1B-7B at published width and capacity
+   factor, 2 of its 16 layers, ``PALLAS_TILED`` with straight-through
+   (the experts' estimator, F9), B = 4, S = 128: one step ``torch.equal``
+   to the plain versions, the experts' gradients non-zero, 9 launches.
+   ``train_families_smoke``: each of the ten architectures at
+   ``reduced()`` (the hybrid at 3 layers: one period, so its attention
+   runs) at ``PALLAS_TILED`` block 32 without straight-through,
+   B = 2, S = 32, one step ``torch.equal`` to the plain versions, its
+   launches by core printed (a contraction shorter than the block, MQA's
+   16, runs the tile kernel); TinyLlama's step also against the CPU's by
+   ``tests/test_torch_lm_train.py``'s rules.  ``train_loop_100m``: the
+   launcher's ``100m`` scale of TinyLlama through ``run_training``, 30
+   steps at ``cosine_schedule(3e-3, 5, 30)``, the loss falling, 171
+   launches every step; a 10-step run failed at step 6 (checkpoints every
+   4) and resumed equals an uninterrupted one bit for bit.  The training
+   CLI (``repro_torch.launch.train``: TinyLlama with ``--bfp
+   --compress-grads``, OLMoE with ``--ckpt-dir``) as subprocesses,
+   exiting 0 with their ``done: loss`` line;
+17. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
@@ -260,6 +291,7 @@ raises (and so exits non-zero) when it fails:
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -503,7 +535,7 @@ def diff(a, b) -> float:
     a, b = (a if isinstance(a, tuple) else (a,),
             b if isinstance(b, tuple) else (b,))
     return max(((u.float() - v.float()).abs().nan_to_num(0.0).max().item()
-                for u, v in zip(a, b)), default=0.0)
+                for u, v in zip(a, b) if u.numel()), default=0.0)
 
 
 def tree_leaves(tree, device=None) -> tuple:
@@ -520,10 +552,10 @@ def same_tree(a, b, nan_aware: bool = True) -> bool:
     each pair bit-equal — NaN-aware bit patterns by default (``nan_bits``:
     NaN == NaN, -0.0 != +0.0), else ``torch.equal`` (NaN != NaN)."""
     la, lb = tree_leaves(a), tree_leaves(b)
-    if nan_aware:
-        return same_bits(la, lb)
-    return len(la) == len(lb) and all(torch.equal(u, v)
-                                      for u, v in zip(la, lb))
+    # leaf by leaf: the NaN-aware patterns of one pair at a time (a
+    # full-width train state is 13 GB)
+    same = same_bits if nan_aware else torch.equal
+    return len(la) == len(lb) and all(same(u, v) for u, v in zip(la, lb))
 
 
 def tree_diff(a, b) -> float:
@@ -1792,15 +1824,27 @@ def kernel_gemm_bound(events):
     rate, 2*M*N*K int8 operations against the int8 peak."""
     nbytes = ops = 0
     for ev in events:
-        if ev.backend == "float" or ev.policy is None:
-            continue
-        w = ev.w
-        parts = [w["m"], w["s"]] if isinstance(w, dict) else [w]
-        k, n = parts[0].shape[-2:]
-        m = ev.x.numel() // ev.x.shape[-1]
-        nbytes += sum(p.numel() * p.element_size() for p in parts) + \
-            m * k * 4 + m * n * 4
-        ops += 2 * m * k * n
+        b, o = gemm_cost(ev)
+        nbytes, ops = nbytes + b, ops + o
+    return bound_of(nbytes, ops)
+
+
+def gemm_cost(ev):
+    """(bytes, ops) of one tapped engine GEMM for :func:`kernel_gemm_bound`
+    ((0, 0) off the kernels), from its shapes: nothing is kept."""
+    if ev.backend == "float" or ev.policy is None:
+        return 0, 0
+    w = ev.w
+    parts = [w["m"], w["s"]] if isinstance(w, dict) else [w]
+    k, n = parts[0].shape[-2:]
+    m = ev.x.numel() // ev.x.shape[-1]
+    return (sum(p.numel() * p.element_size() for p in parts)
+            + m * k * 4 + m * n * 4, 2 * m * k * n)
+
+
+def bound_of(nbytes, ops):
+    """(bound_ms, bound_by, bytes, ops) of GEMMs moving ``nbytes`` and
+    doing ``ops`` int8 operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT8_OPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2353,6 +2397,483 @@ def lm_recurrent_phase(dev, card, detail, launches, seed):
     detail[LM_ENCDEC_PATH[0]]["path_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+
+
+#: phase 16's LM training.  ``train_tinyllama_full``: TinyLlama-1.1B at
+#: its published configuration, (label, arch, batch, sequence).
+LM_TRAIN_FULL = ("train_tinyllama_full", "tinyllama-1.1b", 8, 256)
+#: OLMoE-1B-7B at published width and its published capacity factor
+#: (1.25), 2 of its 16 layers (run time): (label, arch, layers, batch,
+#: sequence)
+LM_TRAIN_OLMOE = ("train_olmoe_width", "olmoe-1b-7b", 2, 4, 128)
+#: every architecture at ``reduced()`` (d_model 64, d_ff 128, vocab
+#: 256), one step each at B = 2, S = 32 (RWKV6's WKV chunk): (arch,
+#: layers).  The hybrid keeps 3 layers, one (rec, rec, attn) period: at
+#: 2 it has no attention block, and its MQA ``wk`` / ``wv`` (N = 16) are
+#: the GEMMs whose #dx contraction is shorter than block 32 (fitted to
+#: 16: the tile kernel)
+LM_TRAIN_FAMILIES = (("tinyllama-1.1b", 2), ("mistral-nemo-12b", 2),
+                     ("minicpm-2b", 2), ("qwen1.5-4b", 2),
+                     ("qwen2-vl-2b", 2), ("mixtral-8x7b", 2),
+                     ("olmoe-1b-7b", 2), ("rwkv6-3b", 2),
+                     ("recurrentgemma-9b", 3), ("seamless-m4t-medium", 2))
+#: the launcher's ``100m`` scale of TinyLlama through ``run_training``:
+#: (label, steps, batch, sequence); the resume check runs 10 steps at
+#: B = 4, S = 128
+LM_TRAIN_LOOP = ("train_loop_100m", 30, 8, 256)
+#: full-width steps timed one by one (CUDA events) for the median
+LM_TRAIN_TIMED = 5
+#: the training CLI (``repro_torch.launch.train``) as subprocesses on the
+#: card; "{tmp}" becomes a temporary checkpoint directory
+LM_TRAIN_CLI_RUNS = (
+    ("--arch", "tinyllama-1.1b", "--scale", "smoke", "--steps", "4",
+     "--batch", "4", "--seq", "64", "--bfp", "--compress-grads"),
+    ("--arch", "olmoe-1b-7b", "--scale", "smoke", "--steps", "4",
+     "--batch", "4", "--seq", "64", "--ckpt-dir", "{tmp}"))
+
+
+def lm_train_launches(cfg, straight_through: bool):
+    """{counter: launches} of one ``make_train_step`` step of a dense or
+    MoE LM at PALLAS_TILED (block 128, float weights), read from the
+    code: every linear site (7 an attention block, 4 with MoE, whose
+    experts run the emulated datapath; and ``lm_head``) runs the patch
+    format pass and the mma core forward, and without straight-through
+    its #dx and #dw the same (``fit_grad_policy`` keeps block 128: every
+    contraction, N of each linear and M = B*S, is a multiple of it);
+    with it the backward is float."""
+    sites = cfg.n_layers * (4 if cfg.is_moe else 7) + 1
+    n = sites * (1 if straight_through else 3)
+    return {"bfp_matmul": n, "bfp_matmul_pformat": n}
+
+
+def same_step(a, ma, b, mb) -> bool:
+    """Two ``make_train_step`` results (state and metrics) bit-equal."""
+    return (same_tree(a, b) and sorted(ma) == sorted(mb)
+            and all(same_bits(ma[k], mb[k].to(ma[k].device)) for k in ma))
+
+
+def step_counts(step, state, batch):
+    """(new state, metrics, launches, wall ms) of one step."""
+    from repro_torch import kernels as K
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, m = step(state, batch)
+    torch.cuda.synchronize()
+    return new, m, K.launch_counts(), (time.perf_counter() - t0) * 1e3
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def by_core(counts):
+    """``bfp_matmul`` launches split by core: the mma core runs after a
+    patch format pass, the tile kernel without one."""
+    mma = counts.get("bfp_matmul_pformat", 0)
+    return {"mma": mma, "tile": counts.get("bfp_matmul", 0) - mma}
+
+
+def lm_train_full(dev, card, seed, detail, launches):
+    """``train_tinyllama_full`` (see the module docstring, phase 16)."""
+    import statistics
+
+    from repro_torch import engine as EG
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.policy import PALLAS_TILED
+    from repro_torch.data.pipeline import LMBatchSpec, lm_batch
+    from repro_torch.models.lm import model as LM
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.train import step as TS
+
+    label, arch, b, s = LM_TRAIN_FULL
+    cfg = ARCHS[arch]
+    row = detail[label] = {}
+    sync = torch.cuda.synchronize
+    pol = PALLAS_TILED.with_(straight_through=False)
+    sched = opt.cosine_schedule(3e-4, 20, 100)
+    want = lm_train_launches(cfg, straight_through=False)
+    lm_path_header(label, arch, cfg, None)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = TS.init_state(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+    sync()
+    row["init_s"] = time.perf_counter() - t0
+    row["params"] = LM.param_count(state.params)
+    spec = LMBatchSpec(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                       seed=seed)
+    step = TS.make_train_step(cfg, sched, policy=pol)
+    pstep = TS.make_train_step(cfg, sched,
+                               policy=pol.with_(backend="plain"))
+    row["steps"] = []
+    for i in range(2):
+        batch = lm_batch(spec, i, device=dev)
+        new, m, counts, wall = step_counts(step, state, batch)
+        loss = float(m["loss"])
+        check(np.isfinite(loss) and np.isfinite(float(m["grad_norm"])),
+              f"{label}: step {i + 1} loss {loss}")
+        check(nonzero(counts) == want, f"{label}: step {i + 1} launches "
+              f"{nonzero(counts)} != {want}")
+        plain, pm, pcounts, pwall = step_counts(pstep, state, batch)
+        check(not any(pcounts.values()),
+              f"{label}: the plain-version step launched a kernel")
+        if not same_step(new, m, plain, pm):
+            fail(f"{label}: step {i + 1} on the kernels != the "
+                 f"plain-version step (params, mu, nu, step, metrics; max "
+                 f"|diff| {tree_diff(new, plain)})")
+        if i == 0:
+            launches[label] = counts
+        del plain, pm
+        state = new
+        row["steps"].append({"loss": loss, "grad_norm": float(
+            m["grad_norm"]), "lr": float(m["lr"]), "ms": wall,
+            "plain_ms": pwall})
+        print(f"path {label} step {i + 1}: loss {loss:.6f} grad_norm "
+              f"{float(m['grad_norm']):.6f} lr {float(m['lr']):.3e}, "
+              f"{wall:.1f} ms (plain versions {pwall:.1f} ms); params, mu, "
+              f"nu, step and metrics torch.equal to the plain-version step;"
+              f" launches {nonzero(counts)} ({by_core(counts)})  [{card}]",
+              flush=True)
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # steady-state steps: the median of CUDA-event times
+    ms = []
+    for i in range(LM_TRAIN_TIMED):
+        batch = lm_batch(spec, 2 + i, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        stop.record()
+        sync()
+        ms.append(start.elapsed_time(stop))
+    step_ms = statistics.median(ms)
+    check(np.isfinite(float(m["loss"])) and int(state.step) == 7,
+          f"{label}: after 7 steps loss {float(m['loss'])}, step "
+          f"{int(state.step)}")
+    # the bound of the step's kernel GEMMs, from a tapped step's shapes
+    cost = [0, 0]
+
+    def tap(ev):
+        c = gemm_cost(ev)
+        cost[0], cost[1] = cost[0] + c[0], cost[1] + c[1]
+
+    with EG.taps(tap):
+        step(state, batch)
+    bms, by, nbytes, ops = bound_of(*cost)
+    # one step under the profiler, by kernel family
+    per_mma = want["bfp_matmul_pformat"]
+    n_mma, fam, pwall = profile_step(lambda: step(state, batch), per_mma)
+    devt = sum(fam.values())
+    tok_s = b * s / (step_ms / 1e3)
+    row.update(step_ms_median=step_ms, step_ms_all=ms, tokens_per_s=tok_s,
+               bound_ms=bms, bound_by=by, bound_bytes=nbytes, bound_ops=ops,
+               profile={"wall_ms": pwall, "device_ms": devt,
+                        "mma_events": n_mma, **fam})
+    print(f"time {label}: median step {step_ms:.2f} ms (CUDA events, "
+          f"{LM_TRAIN_TIMED} steps, B = {b}, S = {s}), {tok_s:.1f} "
+          f"tokens/s; init {row['init_s']:.2f} s ({row['params'] / 1e9:.4f}"
+          f" B params); peak memory {row['peak_gb']:.2f} GB allocated (the "
+          f"kernel and plain-version steps)  [{card}]", flush=True)
+    print(f"profile {label} step: wall {pwall:.2f} ms, device {devt:.2f} ms"
+          f" (busy {100 * devt / pwall:.1f}% of the profiled wall, "
+          f"{100 * devt / step_ms:.1f}% of the median step; {n_mma} of "
+          f"{per_mma} mma-core launches captured): "
+          f"{json.dumps({k: round(v, 3) for k, v in fam.items()})}; kernel "
+          f"GEMMs' bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
+          f"{ops / 1e12:.3f} TOP)  [{card}]", flush=True)
+    del state, m, step, pstep
+
+
+def lm_train_olmoe(dev, card, seed, detail, launches):
+    """``train_olmoe_width`` (see the module docstring, phase 16)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.policy import PALLAS_TILED
+    from repro_torch.data.pipeline import LMBatchSpec, lm_batch
+    from repro_torch.train import step as TS
+
+    label, arch, layers, b, s = LM_TRAIN_OLMOE
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=layers)
+    row = detail[label] = {}
+    pol = PALLAS_TILED           # straight-through: the experts' STE (F9)
+    want = lm_train_launches(cfg, straight_through=True)
+    print(f"path {label}: {arch} at published width (d_model {cfg.d_model},"
+          f" {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+          f"{cfg.capacity_factor:g}), {layers} of its 16 layers (run time)",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_state(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+    batch = lm_batch(LMBatchSpec(vocab_size=cfg.vocab_size, seq_len=s,
+                                 global_batch=b, seed=seed), 0, device=dev)
+    step = TS.make_train_step(cfg, policy=pol)
+    new, m, counts, wall = step_counts(step, state, batch)
+    check(nonzero(counts) == want,
+          f"{label}: launches {nonzero(counts)} != {want}")
+    plain, pm, pcounts, pwall = step_counts(
+        TS.make_train_step(cfg, policy=pol.with_(backend="plain")), state,
+        batch)
+    check(not any(pcounts.values()),
+          f"{label}: the plain-version step launched a kernel")
+    if not same_step(new, m, plain, pm):
+        fail(f"{label}: the step on the kernels != the plain-version step "
+             f"(max |diff| {tree_diff(new, plain)})")
+    mu = new.opt_state.mu["layers"]["moe"]
+    gsum = {k: float(mu[k].abs().sum()) for k in ("w1", "w2", "w3")}
+    check(all(v > 0 for v in gsum.values()) and np.isfinite(
+        float(m["loss"])), f"{label}: expert gradients {gsum}, loss "
+        f"{float(m['loss'])}")
+    launches[label] = counts
+    del plain, pm
+    step_ms = cuda_ms(lambda: step(state, batch), reps=3)
+    row.update(loss=float(m["loss"]), aux=float(m["aux"]), ms=wall,
+               plain_ms=pwall, step_ms=step_ms, expert_mu_abs_sum=gsum,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"path {label}: loss {float(m['loss']):.6f} aux "
+          f"{float(m['aux']):.6f}; the step torch.equal to the plain "
+          f"versions; expert gradients non-zero (sum |mu| "
+          f"{ {k: round(v, 4) for k, v in gsum.items()} }); launches "
+          f"{nonzero(counts)}  [{card}]", flush=True)
+    print(f"time {label}: step {step_ms:.2f} ms (CUDA events, mean of 3, "
+          f"B = {b}, S = {s}); peak memory {row['peak_gb']:.2f} GB "
+          f"allocated  [{card}]", flush=True)
+    del state, new, m, step
+
+
+def lm_train_families(dev, card, seed, detail, launches):
+    """``train_families_smoke`` (see the module docstring, phase 16)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.policy import PALLAS_TILED
+    from repro_torch.data.pipeline import LMBatchSpec, lm_batch
+    from repro_torch.train import step as TS
+
+    label = "train_families_smoke"
+    rows = detail[label] = {}
+    pol = PALLAS_TILED.with_(block_k=32, straight_through=False)
+    for arch, layers in LM_TRAIN_FAMILIES:
+        cfg = reduced(ARCHS[arch], n_layers=layers)
+        cpu_state = TS.init_state(cfg, torch.Generator().manual_seed(seed),
+                                  device="cpu")
+        state = TS.TrainState(*(tree_leaves_to(t, dev) for t in cpu_state))
+        cpu_batch = lm_batch(LMBatchSpec(vocab_size=cfg.vocab_size,
+                                         seq_len=32, global_batch=2,
+                                         seed=seed), 0, device="cpu")
+        batch = tuple(t.to(dev) for t in cpu_batch)
+        new, m, counts, _ = step_counts(TS.make_train_step(cfg, policy=pol),
+                                        state, batch)
+        plain, pm, pcounts, _ = step_counts(
+            TS.make_train_step(cfg, policy=pol.with_(backend="plain")),
+            state, batch)
+        others = {k: v for k, v in nonzero(counts).items()
+                  if k not in ("bfp_matmul", "bfp_matmul_pformat")}
+        check(counts["bfp_matmul"] > 0 and not others,
+              f"{label} {arch}: launches {nonzero(counts)}")
+        check(not any(pcounts.values()),
+              f"{label} {arch}: the plain-version step launched a kernel")
+        if not same_step(new, m, plain, pm):
+            fail(f"{label} {arch}: the step on the kernels != the plain "
+                 f"versions (max |diff| {tree_diff(new, plain)})")
+        check(np.isfinite(float(m["loss"])),
+              f"{label} {arch}: loss {float(m['loss'])}")
+        launches[f"{label}/{arch}"] = counts
+        rows[arch] = {"loss": float(m["loss"]), "launches": nonzero(counts),
+                      "by_core": by_core(counts)}
+        note = ""
+        if arch == "tinyllama-1.1b":
+            note = "; " + card_vs_cpu(cfg, pol, cpu_state, cpu_batch, new, m,
+                                      rows[arch])
+        print(f"path {label} {arch}: loss {float(m['loss']):.6f}, the step "
+              f"torch.equal to the plain versions; bfp_matmul by core "
+              f"{by_core(counts)}{note}  [{card}]", flush=True)
+        launches[label] = {k: launches.get(label, {}).get(k, 0) + v
+                           for k, v in counts.items()}
+        del state, new, plain
+
+
+def tree_leaves_to(tree, dev):
+    """``tree`` with every tensor leaf moved to ``dev``."""
+    from repro_torch import _tree
+    return _tree.tree_map(lambda t: t.to(dev), tree)
+
+
+def card_vs_cpu(cfg, pol, cpu_state, cpu_batch, new, m, row) -> str:
+    """Step 1 on the card against the same step on the CPU, by the CPU
+    parity rules of ``tests/test_torch_lm_train.py``: metrics within 1e-5
+    relative (1e-7 absolute); AdamW's moments and the params with all
+    but 1% of each leaf's elements within 1e-5 relative + 1e-5 of the
+    leaf's largest, and the params within 2.5 lr."""
+    from repro_torch.train import step as TS
+
+    cpu_new, cm = TS.make_train_step(cfg, policy=pol)(cpu_state, cpu_batch)
+    lr = float(cm["lr"])
+    dl = {k: abs(float(m[k]) - float(cm[k])) / max(abs(float(cm[k])),
+                                                   1e-30) for k in cm}
+    worst = {"mu": 0.0, "nu": 0.0, "params": 0.0, "params_max": 0.0}
+    ok = all(abs(float(m[k]) - float(cm[k])) <= 1e-5 * abs(float(cm[k]))
+             + 1e-7 for k in cm)
+    for what, a_tree, b_tree in (("mu", new.opt_state.mu,
+                                  cpu_new.opt_state.mu),
+                                 ("nu", new.opt_state.nu,
+                                  cpu_new.opt_state.nu),
+                                 ("params", new.params, cpu_new.params)):
+        for u, v in zip(tree_leaves(a_tree, "cpu"), tree_leaves(b_tree)):
+            if not v.numel():
+                continue
+            d = (u.double() - v.double()).abs()
+            top = float(v.abs().max())
+            far = float((d > 1e-5 * v.abs() + 1e-5 * top).double().mean())
+            worst[what] = max(worst[what], far)
+            ok &= far <= 0.01
+            if what == "params":
+                worst["params_max"] = max(worst["params_max"],
+                                          float(d.max()))
+                ok &= float(d.max()) <= 2.5 * lr
+    check(ok, f"card vs CPU: metrics {dl}, worst {worst}, lr {lr}")
+    row["card_vs_cpu"] = {"metrics_rel": dl, **worst}
+    return (f"step 1 vs the CPU's: metrics within "
+            f"{max(dl.values()):.2e} relative, share off by > 1e-5 "
+            f"{max(worst['mu'], worst['nu']):.4f} (moments) and "
+            f"{worst['params']:.4f} (params), params max |diff| "
+            f"{worst['params_max']:.2e} (2.5 lr {2.5 * lr:.2e})")
+
+
+def lm_train_loop(dev, card, seed, detail, launches):
+    """``train_loop_100m`` (see the module docstring, phase 16)."""
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.policy import PALLAS_TILED
+    from repro_torch.data.pipeline import LMBatchSpec
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.train import loop as TL
+    from repro_torch.train import step as TS
+
+    label, steps, b, s = LM_TRAIN_LOOP
+    cfg = reduced(ARCHS["tinyllama-1.1b"], n_layers=8, d_model=512,
+                  d_ff=2048, vocab=8192)
+    row = detail[label] = {}
+    pol = PALLAS_TILED.with_(straight_through=False)
+    want = lm_train_launches(cfg, straight_through=False)
+    state = TS.init_state(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+    step = TS.make_train_step(cfg, opt.cosine_schedule(3e-3, 5, steps),
+                              policy=pol)
+    per_step = []
+
+    def counted(st, batch):
+        K.reset_launch_counts()
+        out = step(st, batch)
+        per_step.append(K.launch_counts())
+        return out
+
+    t0 = time.perf_counter()
+    out = TL.run_training(state, counted, LMBatchSpec(
+        vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=seed),
+        TL.LoopConfig(total_steps=steps))
+    secs = time.perf_counter() - t0
+    losses = [h["loss"] for h in out["history"]]
+    check(len(per_step) == steps
+          and all(nonzero(c) == want for c in per_step),
+          f"{label}: launches per step {[nonzero(c) for c in per_step]} "
+          f"!= {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: the loss did not fall: {losses}")
+    launches[label] = per_step[0]
+    # a run broken at step 6 (checkpoints every 4) and resumed equals an
+    # uninterrupted run of the same length, bit for bit
+    rspec = LMBatchSpec(vocab_size=cfg.vocab_size, seq_len=128,
+                        global_batch=4, seed=seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_loop_")
+    try:
+        t1 = time.perf_counter()
+        try:
+            TL.run_training(state, step, rspec, TL.LoopConfig(
+                total_steps=10, ckpt_dir=tmp, ckpt_every=4, fail_at_step=6))
+            fail(f"{label}: the injected failure did not fire")
+        except TL._SimulatedFailure:
+            pass
+        # the step-4 save the crash left in flight lands in the background
+        deadline = time.monotonic() + 60
+        while (store.latest_step(tmp) != 4
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        check(store.latest_step(tmp) == 4,
+              f"{label}: latest checkpoint after the crash is "
+              f"{store.latest_step(tmp)}, not 4")
+        resumed = TL.run_training(state, step, rspec, TL.LoopConfig(
+            total_steps=10, ckpt_dir=tmp, ckpt_every=4))
+        whole = TL.run_training(state, step, rspec,
+                                TL.LoopConfig(total_steps=10))
+        resume_s = time.perf_counter() - t1
+        if not (len(resumed["history"]) == 6
+                and same_tree(resumed["state"], whole["state"])):
+            fail(f"{label}: the resumed run differs from the uninterrupted "
+                 f"one (max |diff| "
+                 f"{tree_diff(resumed['state'], whole['state'])}, "
+                 f"{len(resumed['history'])} steps after the resume)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row.update(losses=losses, seconds=secs,
+               median_step_s=out["median_step_s"],
+               stragglers=out["stragglers_flagged"], resume_s=resume_s,
+               launches=want)
+    print(f"path {label}: {steps} steps of TinyLlama's 100m scale (8 layers,"
+          f" d_model 512, d_ff 2048, vocab 8192; B = {b}, S = {s}) in "
+          f"{secs:.2f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}, median "
+          f"step {out['median_step_s'] * 1e3:.2f} ms, stragglers "
+          f"{out['stragglers_flagged']}; launches {want} every step; a run "
+          f"failed at step 6 and resumed from step 4 torch.equal to an "
+          f"uninterrupted one ({resume_s:.2f} s)  [{card}]", flush=True)
+
+
+def lm_train_phase(dev, card, detail, launches, seed):
+    """Phase 16: LM training (see the module docstring)."""
+    register_plain_backend()
+    t16 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(card_line(), flush=True)      # the card under phase 16's numbers
+    print(f"phase 16: {torch.cuda.memory_allocated() / 1e9:.2f} GB held by "
+          f"earlier phases", flush=True)
+    for path in (lm_train_full, lm_train_olmoe, lm_train_families,
+                 lm_train_loop):
+        t0 = time.perf_counter()
+        path(dev, card, seed, detail, launches)
+        gc.collect()            # the path's tensors in reference cycles
+        torch.cuda.empty_cache()
+        print(f"phase 16 {path.__name__}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"),
+                    os.environ.get("PYTHONPATH")) if p))
+    detail["lm_train_cli"] = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
+    try:
+        for argv in LM_TRAIN_CLI_RUNS:
+            argv = [a.replace("{tmp}", tmp) for a in argv]
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv]
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            lines = run.stdout.strip().splitlines()
+            check(run.returncode == 0 and lines
+                  and lines[-1].startswith("done: loss"),
+                  f"cli {' '.join(argv)}: rc {run.returncode}\n{run.stdout}"
+                  f"\n{run.stderr[-3000:]}")
+            detail["lm_train_cli"].append({"argv": argv, "seconds": secs,
+                                           "last_line": lines[-1]})
+            print(f"cli {' '.join(argv)}: rc 0 in {secs:.2f} s: "
+                  f"{lines[-1]}  [{card}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
 
 
 def pol_lenet():
@@ -3695,7 +4216,10 @@ def main() -> int:
     # -- 15. the recurrent LM families and the encoder-decoder -------------
     lm_recurrent_phase(dev, card, detail, launches, args.seed)
 
-    # -- 16. results ---------------------------------------------------------
+    # -- 16. LM training -----------------------------------------------------
+    lm_train_phase(dev, card, detail, launches, args.seed)
+
+    # -- 17. results ---------------------------------------------------------
     kernels = []
     for name in SOURCES:
         path = next(p for p in launches if launches[p][name] > 0)

@@ -20,15 +20,18 @@ Backward executions emit ``engine.taps`` events (``kind="gemm_dx" |
 "gemm_dw" | "conv_dx" | "conv_dw"``), so measured gradient NSR is
 observable on the real datapath and comparable against the
 ``core.nsr`` bounds (:func:`measure_gradient_nsr`).
+:func:`value_and_grad` differentiates a loss over a params tree, as
+``jax.value_and_grad(has_aux=True)`` does for the trainers.
 """
 from repro_torch.grad.nsr import GradNSRRecord, measure_gradient_nsr
 from repro_torch.grad.paths import (GRAD_KINDS, GradSpec, fit_grad_policy,
                                     grad_path, resolve_grad_policy)
-from repro_torch.grad.vjp import conv2d, conv2d_bound, gemm, gemm_bound
+from repro_torch.grad.vjp import (conv2d, conv2d_bound, gemm, gemm_bound,
+                                  value_and_grad)
 
 __all__ = [
     "GRAD_KINDS", "GradSpec", "grad_path", "resolve_grad_policy",
     "fit_grad_policy",
     "gemm", "gemm_bound", "conv2d", "conv2d_bound",
-    "measure_gradient_nsr", "GradNSRRecord",
+    "measure_gradient_nsr", "GradNSRRecord", "value_and_grad",
 ]

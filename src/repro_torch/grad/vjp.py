@@ -48,6 +48,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import _tree
 from repro_torch.core.bfp import Scheme
 from repro_torch.core.bfp_dot import quantize_activations, quantize_weights
 from repro_torch.core.conv_utils import conv_weight_matrix, im2col
@@ -260,3 +261,27 @@ def conv2d_bound(x, w, site, stride: int, padding: str):
                    _site_spec(site, "dw"), stride, padding, site.path,
                    False)
     return _Conv.apply(x, w, cfg)
+
+
+def value_and_grad(loss_fn, params):
+    """``jax.value_and_grad(loss_fn, has_aux=True)(params)`` for a
+    params tree: ``((loss, aux), grads)``, detached.  Every float leaf is
+    made a fresh leaf that requires grad, and a leaf the loss does not
+    reach gets zeros, as ``jax.grad`` gives; non-float leaves get
+    themselves as their gradient (they pass through an update
+    untouched)."""
+    leaves, treedef = _tree.flatten(params)
+    live = [p.detach().requires_grad_() if _is_float(p) else p
+            for p in leaves]
+    wrt = [p for p in live if _is_float(p)]
+    with torch.enable_grad():
+        loss, aux = loss_fn(_tree.unflatten(treedef, live))
+        gs = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
+                                      materialize_grads=True))
+    grads = _tree.unflatten(treedef, [next(gs) if _is_float(p) else p
+                                      for p in live])
+    return (loss.detach(), _tree.tree_map(torch.Tensor.detach, aux)), grads
+
+
+def _is_float(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_floating_point()

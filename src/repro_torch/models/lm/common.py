@@ -38,6 +38,15 @@ Policy = PolicyLike
 Shape = Tuple[int, ...]
 
 
+def scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-d tensor of ``like``'s dtype and device (a fill, no
+    host copy).  ``torch.maximum`` / ``torch.minimum`` against it give
+    the same values as ``torch.clamp``, and at a tie split the gradient
+    0.5 / 0.5 as ``jnp.maximum`` / ``jnp.clip`` do (``torch.clamp``
+    passes all of it)."""
+    return like.new_full((), v)
+
+
 def normal(gen: torch.Generator, shape: Shape, scale: float,
            device: torch.device) -> torch.Tensor:
     """N(0, 1) * ``scale``, drawn on the generator's device."""
@@ -229,7 +238,7 @@ def _flash_sdpa(q, k, v, cfg: LMConfig, causal: bool,
         acc = (acc * alpha[..., None]
                + torch.einsum("bhgst,bthd->bhgsd", p, vs.to(torch.float32)))
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = acc / torch.maximum(l, scalar(1e-30, l))[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
 
 

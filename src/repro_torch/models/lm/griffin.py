@@ -31,7 +31,8 @@ import torch
 
 from repro_torch import engine as EG
 from repro_torch.configs.base import LMConfig
-from repro_torch.models.lm.common import Shape, linear, linear_init, normal
+from repro_torch.models.lm.common import (Shape, linear, linear_init, normal,
+                                          scalar)
 
 __all__ = ["rglru_block_init", "rglru_block", "rglru_block_decode"]
 
@@ -70,8 +71,10 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` = max(x, 0) +
-    log1p(exp(-|x|)), with no linear threshold."""
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    log1p(exp(-|x|)), with no linear threshold; its gradient at 0 is
+    0.5, as ``logaddexp``'s."""
+    return (torch.maximum(x, scalar(0.0, x))
+            + torch.log1p(torch.exp(-torch.abs(x))))
 
 
 def _causal_conv(w, b, x, x_hist=None):
@@ -138,8 +141,9 @@ def _gates(p, x, policy):
     r = torch.sigmoid(linear(p["wr"], x, policy).to(f32))
     i = torch.sigmoid(linear(p["wi"], x, policy).to(f32))
     log_a = -_C * softplus(p["lam"]) * r
-    drive = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
-                                   min=1e-12)) * (i * x.to(f32))
+    one_m = 1.0 - torch.exp(2.0 * log_a)
+    drive = torch.sqrt(torch.maximum(one_m, scalar(1e-12, one_m))) * (
+        i * x.to(f32))
     return torch.exp(log_a), drive
 
 

@@ -14,8 +14,8 @@ Layer stacks keep the reference's stacked layout: every leaf of
 recurrent blocks are the list ``params["rem"]``, so a tree exported from
 ``repro`` loads unchanged (``convert``), and so do its prequant sidecars
 and packed containers.  Where the reference scans over a stack, the port
-runs a Python loop over the layer index, each layer taking
-``tree_map(lambda t: t[i], stacked)``.
+runs a Python loop over the layer index, each layer taking its views of
+the stacked leaves (one ``torch.unbind`` per leaf and forward).
 
 The encoder-decoder is served through ``serve.engine.generate(
 enc_feats=)`` (``prefill_encoder`` once, its output in the cache), as in
@@ -34,6 +34,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import _tree
 from repro_torch import engine as EG
@@ -177,10 +178,18 @@ def param_count(params) -> int:
 
 
 def _layers(stacked):
-    """(number of layers, layer i's params) of a stacked layer tree."""
-    leaves = _tree.flatten(stacked)[0]
+    """(number of layers, layer i's params) of a stacked layer tree.
+
+    Each ``[L, ...]`` leaf is unbound once into its L layer views: under
+    autograd the backward of one ``unbind`` stacks the L layer
+    gradients, where L ``t[i]`` selects would each write a zero
+    ``[L, ...]`` tensor for the engine to add up (the same values; a
+    -0.0 layer gradient stays -0.0 instead of becoming +0.0, which no
+    optimizer state sees)."""
+    leaves, treedef = _tree.flatten(stacked)
     n = leaves[0].shape[0] if leaves else 0
-    return n, lambda i: _tree.tree_map(lambda t: t[i], stacked)
+    views = [torch.unbind(t) for t in leaves]
+    return n, lambda i: _tree.unflatten(treedef, [v[i] for v in views])
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +197,10 @@ def _layers(stacked):
 # ---------------------------------------------------------------------------
 
 def _embed(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"]["e"][tokens]
+    # the rows of ``embed`` (a gather, as indexing): its backward sums
+    # repeated tokens deterministically on the CPU and the card, where
+    # indexing's accumulating scatter varies from run to run on the CPU
+    x = F.embedding(tokens, params["embed"]["e"])
     return (x * math.sqrt(float(cfg.d_model))).to(
         getattr(torch, cfg.compute_dtype))
 

@@ -17,7 +17,13 @@ arithmetic) whatever the backend, as the reference's vmapped
 block exponents.  Under a TILED policy all experts run as one batched
 computation (bit-equal to one call per expert, since every block lies
 inside one expert); other schemes, and STOCHASTIC rounding, call the
-per-expert datapath once per expert.
+per-expert datapath once per expert.  Gradients are the reference's:
+with ``policy.straight_through`` the batched computation is the
+straight-through estimator of ``bfp_matmul_2d`` per expert (float
+gradients over the dequantized operands); without it the integer
+mantissas carry none, and the expert weights get zeros, as
+differentiating through ``repro``'s quantizer gives.  Prequant experts
+have no gradient.
 
 Selection and combine are deterministic: top-k by a stable descending
 sort (the lower expert index first on ties, as ``lax.top_k``), and each
@@ -90,6 +96,32 @@ def _batched_tiled(xe: torch.Tensor, we, policy) -> torch.Tensor:
     return _sum_in_order((part * sx * sw).transpose(0, 1))
 
 
+class _BatchedTiledSTE(torch.autograd.Function):
+    """:func:`_batched_tiled` with ``core.bfp_dot._BfpMatmulSTE``'s
+    gradients per expert: ``g @ wq.T`` and ``xq.T @ g`` over the operands
+    dequantized as the forward formats them (x per (row, K-tile), w per
+    (column, K-tile) of each expert)."""
+
+    @staticmethod
+    def forward(ctx, xe, we, policy):
+        ctx.policy = policy
+        ctx.save_for_backward(xe, we)
+        return _batched_tiled(xe, we, policy)
+
+    @staticmethod
+    def backward(ctx, g):
+        xe, we = ctx.saved_tensors
+        pol = ctx.policy
+        e, c, k = xe.shape
+        bk, n = pol.block_k or k, we.shape[-1]
+        xq = bfp.bfp_quantize_matrix(
+            xe.reshape(e * c, k), pol.l_i, "w", Scheme.TILED, bk,
+            pol.rounding).dequantize().reshape(e, c, k)
+        wq = bfp.quantize(we.reshape(e, k // bk, bk, n), pol.l_w, (2,),
+                          pol.rounding).dequantize().reshape(e, k, n)
+        return g @ wq.transpose(1, 2), xq.transpose(1, 2) @ g, None
+
+
 def _expert_gemm(xe: torch.Tensor, we, policy) -> torch.Tensor:
     """[E, C, d_in] x [E, d_in, d_out] -> [E, C, d_out], BFP per expert.
 
@@ -105,6 +137,10 @@ def _expert_gemm(xe: torch.Tensor, we, policy) -> torch.Tensor:
     if (policy.scheme is Scheme.TILED and policy.rounding is not
             Rounding.STOCHASTIC and policy.quantize_inputs
             and (policy.quantize_weights or t is not None) and t != 1):
+        if (policy.straight_through and t is None
+                and torch.is_grad_enabled()
+                and (xe.requires_grad or we.requires_grad)):
+            return _BatchedTiledSTE.apply(xe, we, policy)
         return _batched_tiled(xe, we, policy)
     if is_prequant(we):
         return torch.stack([bfp_matmul_2d_prequant(a, m, s, policy)
@@ -159,7 +195,7 @@ def moe_apply(p, cfg: LMConfig, x: torch.Tensor, policy: Policy = None
 
     # gather tokens into expert buffers [E*C+1, D] (last row = drop bucket)
     buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=dev)
-    buf[slot] = xt[sorted_tok]
+    buf[slot] = F.embedding(sorted_tok, xt)   # xt[sorted_tok], as _embed
     xe = buf[:-1].reshape(e, cap, d)
 
     # ---- expert FFN (SwiGLU) ----------------------------------------------

@@ -31,7 +31,7 @@ import torch
 from repro_torch import engine as EG
 from repro_torch.configs.base import LMConfig
 from repro_torch.models.lm.common import (Shape, linear, linear_init, normal,
-                                          rmsnorm, rmsnorm_init)
+                                          rmsnorm, rmsnorm_init, scalar)
 
 __all__ = ["time_mix_init", "time_mix", "time_mix_decode",
            "channel_mix_init", "channel_mix", "channel_mix_decode"]
@@ -114,7 +114,10 @@ def _wkv_chunked(r, k, v, w, u) -> torch.Tensor:
     rc, kc, vc, wc = (t.to(f32).reshape(b, n, c, h, d).permute(1, 0, 3, 2, 4)
                       for t in (r, k, v, w))            # [n, B, H, C, D]
 
-    logw = torch.clamp(torch.log(torch.clamp(wc, min=1e-38)), _LOGW_MIN, 0.0)
+    # maximum / minimum against tensors, not clamp: at a tie their
+    # gradient splits 0.5 / 0.5, as jnp.maximum's and jnp.clip's do
+    logw = torch.minimum(torch.maximum(torch.log(torch.maximum(
+        wc, scalar(1e-38, wc))), scalar(_LOGW_MIN, wc)), scalar(0.0, wc))
     logp = torch.cumsum(logw, dim=3)                     # inclusive
     pprev = torch.exp(logp - logw)                       # exclusive (P_{i-1})
     r_t = rc * pprev
@@ -166,7 +169,7 @@ def time_mix_decode(p, cfg: LMConfig, x: torch.Tensor, state
     u = p["u"].to(f32)
     kv = torch.einsum("bhd,bhe->bhde", k1, v1)
     o = torch.einsum("bhd,bhde->bhe", r1, s_prev + u[None, :, :, None] * kv)
-    w1 = torch.clamp(w1, min=math.exp(_LOGW_MIN))   # the forward's clamp
+    w1 = torch.maximum(w1, scalar(math.exp(_LOGW_MIN), w1))  # forward's clamp
     s_new = s_prev * w1[..., None] + kv
     b = x.shape[0]
     o = rmsnorm(p["ln"], o.reshape(b, 1, -1).to(x.dtype), cfg.norm_eps)

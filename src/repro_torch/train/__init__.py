@@ -1,3 +1,3 @@
-"""Training of the port (counterpart of ``repro.train``): so far the
-data-parallel BFP CNN trainer, ``train.cnn``.  The LM training step and
-loop (``repro.train.step`` / ``loop``) arrive with the LM stack."""
+"""Training of the port (counterpart of ``repro.train``): the LM train
+step and fault-tolerant loop (``train.step``, ``train.loop``) and the
+data-parallel BFP CNN trainer (``train.cnn``)."""

@@ -42,7 +42,9 @@ from repro_torch._tree import tree_map
 from repro_torch.data.pipeline import image_batch
 from repro_torch.dist import compress as DC
 from repro_torch.engine.policy_map import PolicyLike
+from repro_torch.grad import value_and_grad
 from repro_torch.grad.nsr import GradNSRRecord, measure_gradient_nsr
+from repro_torch.grad.vjp import _is_float
 from repro_torch.models.cnn import MODELS, head_logits
 from repro_torch.optim import optimizers as opt
 
@@ -87,10 +89,6 @@ def _spec(cfg: CnnTrainConfig):
     return MODELS[cfg.model]
 
 
-def _is_float(x) -> bool:
-    return isinstance(x, torch.Tensor) and x.is_floating_point()
-
-
 def init_state(cfg: CnnTrainConfig, gen: Optional[torch.Generator] = None,
                *, device: DeviceLike = "cuda") -> CnnTrainState:
     """Fresh reduced-model params (``repro``'s training configuration),
@@ -132,19 +130,10 @@ def cnn_loss(params, apply_fn, x, y, policy: PolicyLike,
 
 
 def _value_and_grad(cfg: CnnTrainConfig, apply_fn, params, x, y):
-    """(loss, grads) of one batch; non-float leaves get themselves as
-    their gradient (they pass through the update untouched)."""
-    leaves, treedef = _tree.flatten(params)
-    live = [p.detach().requires_grad_() if _is_float(p) else p
-            for p in leaves]
-    wrt = [p for p in live if _is_float(p)]
-    with torch.enable_grad():
-        loss = cnn_loss(_tree.unflatten(treedef, live), apply_fn, x, y,
-                        cfg.policy, cfg.num_classes)
-        gs = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
-                                      materialize_grads=True))
-    return loss.detach(), _tree.unflatten(
-        treedef, [next(gs) if _is_float(p) else p for p in live])
+    """(loss, grads) of one batch (``grad.value_and_grad``)."""
+    (loss, _), grads = value_and_grad(lambda p: (cnn_loss(
+        p, apply_fn, x, y, cfg.policy, cfg.num_classes), {}), params)
+    return loss, grads
 
 
 def _worker_grads(cfg: CnnTrainConfig, apply_fn, params, x, y):

@@ -1157,3 +1157,50 @@ def test_cuda_recurrent_and_encdec_lms_match_plain_versions(cuda, arch,
     solo.submit(r)
     solo.run()
     assert r.out == outs["kernels"][1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,straight_through,per_step", [
+    # 7 linears of 2 layers and lm_head, forward and both backward GEMMs
+    ("tinyllama-1.1b", False, 3 * 15),
+    # 4 attention linears of 2 layers and lm_head, forward only: the
+    # straight-through backward is float, the experts emulated (F9)
+    ("olmoe-1b-7b", True, 9)])
+def test_cuda_lm_train_step_matches_plain_versions(cuda, arch,
+                                                   straight_through,
+                                                   per_step):
+    """A reduced LM's ``make_train_step`` step at ``PALLAS_TILED``
+    (block 32) on the kernels: ``torch.equal`` to the same step through
+    the plain versions (params, AdamW moments, step, metrics) and to
+    itself repeated, with ``bfp_matmul`` launches as counted from the
+    code; the experts' gradients non-zero."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.pipeline import LMBatchSpec, lm_batch
+    from repro_torch.train import step as TS
+
+    _register_plain_backend()
+    cfg = reduced(ARCHS[arch], n_layers=2, d_model=64, d_ff=128, vocab=256)
+    state = TS.init_state(cfg, torch.Generator().manual_seed(0),
+                          device=cuda)
+    batch = lm_batch(LMBatchSpec(vocab_size=256, seq_len=32,
+                                 global_batch=2), 0, device=cuda)
+    pol = PALLAS_TILED.with_(block_k=32, straight_through=straight_through)
+    runs = []
+    for be in ("pallas", "pallas", "plain"):
+        step = TS.make_train_step(cfg, policy=pol.with_(backend=be))
+        K.reset_launch_counts()
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        runs.append((new, metrics, K.launch_counts()))
+    (a, ma, na), (b, mb, _), (p, mp, npl) = runs
+    for other, mo in ((b, mb), (p, mp)):
+        assert all(torch.equal(u, v) for u, v in zip(_tree.flatten(a)[0],
+                                                     _tree.flatten(other)[0]))
+        assert all(torch.equal(ma[k], mo[k]) for k in ma)
+    assert sum(npl.values()) == 0
+    assert {k: v for k, v in na.items() if v and not k.endswith(
+        "format")} == {"bfp_matmul": per_step}
+    if cfg.is_moe:
+        mu = a.opt_state.mu["layers"]["moe"]
+        assert all(float(mu[k].abs().sum()) > 0 for k in ("w1", "w2", "w3"))

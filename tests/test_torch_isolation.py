@@ -262,3 +262,40 @@ def test_recurrent_and_encdec_entry_points_need_cuda_unless_asked(
         out = SE.generate(params, cfg, prompt, 2, enc_feats=enc,
                           device="cpu")
         assert out.shape == (1, 2) and out.device.type == "cpu"
+
+
+def test_lm_training_entry_points_need_cuda_unless_asked(monkeypatch,
+                                                        tmp_path):
+    """The LM training slice (``train.step``, ``train.loop``, the LM data
+    stream, ``launch.train``) imports nothing of the reference (the scan
+    above), defaults to the card and raises without it; asked for
+    explicitly, the CPU trains."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data import pipeline as DP
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import loop as TL
+    from repro_torch.train import step as TS
+
+    names = {f.relative_to(REPO).as_posix() for f in _port_files()}
+    assert {"src/repro_torch/train/step.py", "src/repro_torch/train/loop.py",
+            "src/repro_torch/launch/train.py"} <= names
+    cfg = reduced(ARCHS["tinyllama-1.1b"], n_layers=1, d_model=32, d_ff=32,
+                  vocab=64)
+    spec = DP.LMBatchSpec(vocab_size=64, seq_len=8, global_batch=2)
+    gen = torch.Generator().manual_seed(0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: TS.init_state(cfg, gen),
+                 lambda: DP.lm_batch(spec, 0),
+                 lambda: train_cli.main(["--arch", "tinyllama-1.1b",
+                                         "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # asked for explicitly, the CPU trains (its batches follow the state)
+    state = TS.init_state(cfg, gen, device="cpu")
+    out = TL.run_training(state, TS.make_train_step(cfg), spec,
+                          TL.LoopConfig(total_steps=2,
+                                        ckpt_dir=str(tmp_path)))
+    assert int(out["state"].step) == 2 and len(out["history"]) == 2
+    train_cli.main(["--arch", "rwkv6-3b", "--steps", "1", "--batch", "2",
+                    "--seq", "32", "--device", "cpu"])

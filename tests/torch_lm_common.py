@@ -1,5 +1,6 @@
 """Shared fixtures of the LM parity tests (``test_torch_lm_*.py``; no
-tests here).
+tests here).  The training parity helpers and their tolerances are at the
+end (``test_torch_lm_train.py``'s docstring states the rules).
 
 Both packages build the same reduced configs (2 layers, d_model 64,
 d_ff 128, vocab 256) of the ten architectures.  The
@@ -13,17 +14,29 @@ from __future__ import annotations
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from repro.configs import base as RB
 from repro.configs import registry as RR
+from repro.core.bfp_dot import bfp_matmul_2d
+from repro.core.policy import TPU_TILED as R_TILED
+from repro.dist.compress import make_compressor as r_make_compressor
 from repro.models.lm import model as RM
+from repro.optim import optimizers as ropt
+from repro.train import step as RS
 from repro_torch import _tree
 from repro_torch.configs import base as PB
 from repro_torch.configs import registry as PR
+from repro_torch import engine as PEG
 from repro_torch.convert import params_from_numpy
-from test_torch_util import to_numpy_tree
+from repro_torch.core.policy import PALLAS_TILED, TPU_TILED
+from repro_torch.grad import value_and_grad
+from repro_torch.grad.nsr import BACKWARD_KINDS
+from repro_torch.optim import optimizers as popt
+from repro_torch.train import step as PS
+from test_torch_util import assert_bits_equal, t, to_numpy_tree
 
 #: the attention families this slice serves: dense (tinyllama,
 #: mistral-nemo, minicpm with tied embeddings and N % 4 != 0 at full
@@ -338,3 +351,245 @@ def check_generate(arch: str) -> None:
                        policy=ppol, max_len=16, device="cpu")
         assert got.tolist() == np.asarray(want).tolist(), (arch, ppol)
 
+
+
+# ---------------------------------------------------------------------------
+# training: lm_loss, its gradients and whole steps against repro
+# ---------------------------------------------------------------------------
+
+B, S = 2, 32
+TOKENS = tokens(B, S, 256, seed=3)
+TARGETS = np.roll(TOKENS, -1, axis=1)
+#: the float step's schedule and its state's step (lr nonzero after the
+#: warmup)
+SCHED = (1e-3, 2, 10)
+STEP0 = 3
+
+
+#: a case's policy kind: "float" (None), "ste" (TILED block 32,
+#: straight-through) or "hard" (the same without: the backward GEMMs
+#: quantized under the grad-path policies)
+def ref_policy(kind):
+    if kind == "float":
+        return None
+    return R_TILED.with_(block_k=BLOCK, straight_through=kind == "ste")
+
+
+def port_policy(kind, backend):
+    if kind == "float":
+        return None
+    base = TPU_TILED if backend == "emulated" else PALLAS_TILED
+    return base.with_(block_k=BLOCK, straight_through=kind == "ste")
+
+
+@functools.lru_cache(maxsize=None)
+def train_params_np(arch: str, n_layers: int = 2, seed: int = 0):
+    """The port's seeded init of ``arch`` as a numpy tree: the training
+    parity tests hand both packages these params (the hybrid's 2- and
+    3-layer trees are the ones its layouts give: empty ``periods`` or an
+    empty ``rem``), so no reference init is compiled."""
+    from repro_torch.models.lm import model as PM
+    p = PM.init_params(cfgs(arch, n_layers=n_layers)[1],
+                       torch.Generator().manual_seed(seed), device="cpu")
+    return _tree.tree_map(lambda a: a.numpy(), p)
+
+
+def port_train_params(arch: str, n_layers: int = 2):
+    """:func:`train_params_np` as the port's tree of CPU tensors."""
+    return params_from_numpy(train_params_np(arch, n_layers), device="cpu")
+
+
+def _ref_state(p, step):
+    return RS.TrainState(params=p, opt_state=ropt.adamw_init(p),
+                         step=jnp.asarray(step, jnp.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def ref_train_case(arch, n_layers, kind):
+    """The reference's (loss, metrics) and grads of one case as numpy
+    (``"vg"``), and for TinyLlama its train steps from the same jit:
+    float — one step, ``grad_accum=2`` and one through
+    ``make_compressor(bits=8)`` (zero residual) from a state at
+    ``STEP0`` under ``SCHED``; hard — one step at the default schedule
+    from step 0, whose first AdamW moment is ``(1 - b1) * clip(g)``: its
+    ``"vg"`` is read back from that step (metrics, and ``mu`` over
+    ``0.1`` and the clip scale, within a few ulps of ``g``), so the jit
+    traces one BFP gradient instead of two."""
+    rcfg = cfgs(arch, n_layers=n_layers)[0]
+    pol = ref_policy(kind)
+    hard_step = arch == "tinyllama-1.1b" and kind == "hard"
+
+    def run(p, tk, tg):
+        out = {}
+        if not hard_step:
+            out["vg"] = jax.value_and_grad(
+                lambda q: RS.lm_loss(q, rcfg, tk, tg, policy=pol),
+                has_aux=True)(p)
+        if arch == "tinyllama-1.1b" and kind == "float":
+            sched = ropt.cosine_schedule(*SCHED)
+            st = _ref_state(p, STEP0)
+            init_fn, transform = r_make_compressor(bits=8)
+            for name, kw in (("step", {}), ("accum2", {"grad_accum": 2}),
+                             ("compress", {"grad_transform": lambda g:
+                                           transform(g, init_fn(g))[0]})):
+                out[name] = RS.make_train_step(rcfg, sched, **kw)(
+                    st, (tk, tg))
+        elif hard_step:
+            out["step"] = RS.make_train_step(rcfg, policy=pol)(
+                _ref_state(p, 0), (tk, tg))
+        return out
+
+    p = train_params_np(arch, n_layers)
+    out = to_numpy_tree(jax.jit(run)(p, TOKENS, TARGETS))
+    if hard_step:
+        state, m = out["step"]
+        scale = min(1.0, 1.0 / max(float(m["grad_norm"]), 1e-9))
+        grads = jax.tree_util.tree_map(
+            lambda mu: (mu.astype(np.float64) / 0.1 / scale).astype(
+                np.float32), state.opt_state.mu)
+        out["vg"] = ((m["loss"], {k: m[k] for k in ("nll", "aux", "zloss")}),
+                     grads)
+    return out
+
+
+def port_value_and_grad(arch, n_layers, policy, params=None, tap=None):
+    pcfg = cfgs(arch, n_layers=n_layers)[1]
+    params = params or port_train_params(arch, n_layers)
+    tk, tg = t(TOKENS), t(TARGETS)
+    with PEG.taps(tap or (lambda ev: None)):
+        return value_and_grad(
+            lambda q: PS.lm_loss(q, pcfg, tk, tg, policy=policy), params)
+
+
+def _np(a):
+    return a.detach().numpy() if isinstance(a, torch.Tensor) else \
+        np.asarray(a)
+
+
+def assert_float_leaf(got, want):
+    g, w = _np(got), _np(want)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    if w.size:
+        assert np.abs(g - w).max() <= 1e-5 * max(np.abs(w).max(), 1e-30)
+
+
+def bfp_far_share(got, want) -> float:
+    """The share of elements outside the BFP rule's band: 1e-5 of the
+    element plus 1e-5 of the leaf's largest magnitude (0.0 for an empty
+    leaf)."""
+    g, w = _np(got).astype(np.float64), _np(want).astype(np.float64)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    if not w.size:
+        return 0.0
+    scale = max(np.abs(w).max(), 1e-30)
+    return float((np.abs(g - w) > 1e-5 * np.abs(w) + 1e-5 * scale).mean())
+
+
+def assert_bfp_leaf(got, want):
+    """The BFP rule: all but 1% of elements within 1e-5 relative + 1e-5
+    of the leaf's largest magnitude."""
+    far = bfp_far_share(got, want)
+    assert far <= 0.01, far
+
+
+def assert_param_leaf(got, want, lr):
+    """``tests/test_torch_train_cnn.py``'s rule for params after AdamW."""
+    g, w = _np(got), _np(want)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    if w.size:
+        scale = max(np.abs(w).max(), 1e-30)
+        far = np.abs(g - w) > 1e-5 * np.abs(w) + 1e-5 * scale
+        assert far.mean() <= 0.01, far.mean()
+        assert np.abs(g - w).max() <= 2.5 * lr
+
+
+def assert_scalar(got, want):
+    np.testing.assert_allclose(float(got), float(np.asarray(want)),
+                               rtol=1e-5, atol=1e-7)
+
+
+def check_loss_and_grads(arch, n_layers, kind, backend):
+    """The port's loss, metrics and gradients of one case against the
+    reference's, under the case's rule; returns the port's grads."""
+    (loss, metrics), grads = port_value_and_grad(
+        arch, n_layers, port_policy(kind, backend))
+    (rloss, rmetrics), rgrads = ref_train_case(arch, n_layers, kind)["vg"]
+    assert_scalar(loss, rloss)
+    assert sorted(metrics) == sorted(rmetrics) == ["aux", "nll", "zloss"]
+    for k in metrics:
+        assert_scalar(metrics[k], rmetrics[k])
+    got, want = np_leaves(grads), ref_leaves(rgrads)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        (assert_float_leaf if kind == "float" else assert_bfp_leaf)(g, w)
+    return grads
+
+
+def check_bfp_rule_discriminates(arch, n_layers, kind):
+    """The controls of a BFP case: the port's gradient under the other
+    backward (straight-through against the quantized backward) and under
+    the float policy, each held to the reference's gradient of ``kind``
+    by the BFP rule, must fail it (a gradient of the wrong precision
+    does not pass)."""
+    rgrads = ref_leaves(ref_train_case(arch, n_layers, kind)["vg"][1])
+    other = {"ste": "hard", "hard": "ste"}[kind]
+    for pol in (port_policy(other, "emulated"), None):
+        grads = port_value_and_grad(arch, n_layers, pol)[1]
+        far = [bfp_far_share(g, w) for g, w in zip(np_leaves(grads), rgrads)]
+        assert max(far) > 0.01, (pol, far)
+
+
+# ---------------------------------------------------------------------------
+# the quantized backward, GEMM by GEMM
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def tapped(arch, n_layers, backend):
+    """The engine events of ``arch``'s gradient without straight-through
+    on ``backend``."""
+    events = []
+    port_value_and_grad(arch, n_layers, port_policy("hard", backend),
+                        tap=events.append)
+    return events
+
+
+@functools.lru_cache(maxsize=None)
+def tapped_ref(arch, n_layers):
+    """The reference's integer datapath on each tapped (x, w) of the
+    emulated run, under the tapped (fitted) policy: one jit."""
+    events = tapped(arch, n_layers, "emulated")
+    pols = [R_TILED.with_(block_k=ev.policy.block_k, straight_through=False)
+            for ev in events]
+    xs = [ev.x.reshape(-1, ev.x.shape[-1]).detach().numpy() for ev in events]
+    ws = [ev.w.detach().numpy() for ev in events]
+    outs = jax.jit(lambda xs, ws: [
+        bfp_matmul_2d(x, w, p) for x, w, p in zip(xs, ws, pols)])(xs, ws)
+    return [np.asarray(o) for o in outs]
+
+
+def check_tapped(arch, n_layers, backend, n_sites=None):
+    """Every forward GEMM the port taps in ``arch``'s gradient without
+    straight-through, and its #dx and #dw, equals the reference's
+    integer datapath on the tapped operands under the tapped (fitted)
+    policy, bit for bit; the kernel backend's operands are the emulated
+    backend's.  ``n_sites``, where given, is the forward GEMM count."""
+    events = tapped(arch, n_layers, backend)
+    fwd = [ev for ev in events if ev.kind not in BACKWARD_KINDS]
+    assert len(events) == 3 * len(fwd) > 0
+    assert n_sites is None or len(fwd) == n_sites
+    assert {ev.backend for ev in events} == {backend}
+    for ev, em, want in zip(events, tapped(arch, n_layers, "emulated"),
+                            tapped_ref(arch, n_layers)):
+        assert (ev.kind, ev.path, ev.policy.block_k) == (
+            em.kind, em.path, em.policy.block_k)
+        assert torch.equal(ev.x, em.x) and torch.equal(ev.w, em.w)
+        assert_bits_equal(ev.y.reshape(want.shape), want)
+
+
+def port_train_state(p, step, device="cpu"):
+    """A ``TrainState`` of the port over a copy of ``p``: fresh AdamW
+    moments, ``step`` as an int32 0-d tensor."""
+    params = _tree.tree_map(lambda a: a.clone(), p)
+    return PS.TrainState(params=params, opt_state=popt.adamw_init(params),
+                         step=torch.tensor(step, dtype=torch.int32,
+                                           device=device))
