@@ -275,7 +275,28 @@ raises (and so exits non-zero) when it fails:
    CLI (``repro_torch.launch.train``: TinyLlama with ``--bfp
    --compress-grads``, OLMoE with ``--ckpt-dir``) as subprocesses,
    exiting 0 with their ``done: loss`` line;
-17. a JSON line of per-kernel numbers, then the result line
+17. logical-axis sharding (``dist.sharding``, ``launch.mesh``) on a 1x1
+   ("data", "model") mesh of the card, over the one-rank group
+   ``make_mesh`` starts.  ``sharded_resnet50_full``: phase 8's ResNet-50
+   plan served through ``CnnServeEngine(mesh=, rules=DEFAULT_RULES)``,
+   16 requests at bucket 8: logits ``torch.equal`` to phase 8's
+   unsharded engine and to the plain versions, launches equal to
+   ``MODEL_LAUNCHES["resnet50_full"]`` and to phase 8's run, no rule
+   dropped; then the median batch-8 forward with and without the
+   binding (alternating pairs, CUDA events) and the engine's host work
+   per forward.  ``serve_cnn_mesh_vgg16_full``: the serve CLI on
+   full-width VGG16 (``--bfp --prequant --strict-backend``) with ``--mesh
+   1x1`` and without, as subprocesses: both exit 0 with equal logits.
+   ``restore_sharded_vgg16``: phase 4's VGG16 saved float32 and
+   ``bfp_packed``, restored with ``sharding_fn`` onto the card and onto
+   the mesh (``[Replicate(), Replicate()]``): every leaf equal to the
+   plain restore, the ``"dequant"`` weights placed as DTensors, the
+   ``"prequant"`` sidecars not.  ``lm_tinyllama_bound``: one full-width
+   TinyLlama ``decode_step`` (B = 4) and one ``forward`` (B = 2,
+   S = 64) under ``axis_rules(DEFAULT_RULES, mesh)``, ``torch.equal`` to
+   the unbound calls with ``lm_launches_per_call``'s launches (155 + 155
+   a step) both ways and no rule dropped;
+18. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
@@ -591,6 +612,58 @@ R50_T4_LAUNCHES = {"bfp_conv2d": 53, "bfp_conv2d_pformat": 52,
 T4_FIELDS = ("input_ex", "input_single", "input_multi", "weight_ex",
              "weight_model", "output_ex", "output_single", "output_multi",
              "relu_ex")
+
+
+def serve_check(label, plan, apply, images, per_forward, dev, classes,
+                pplan, **engine_kw):
+    """Serve ``images`` (16) as requests through ``CnnServeEngine`` on the
+    bound ``plan`` (8 slots, ``engine_kw`` passed on) and check the path:
+    no failed request and no float retry, its own launches (zeroed just
+    before, read just after) ``per_forward`` times the forwards, finite
+    logits of [16, ``classes``], ``torch.equal`` to a direct batch-8
+    forward of the plan and to the same forward of ``pplan`` (the plain
+    versions).  Returns (engine, served logits, launches)."""
+    from repro_torch import kernels as K
+    from repro_torch.models.cnn import head_logits
+    from repro_torch.serve.cnn import CnnServeEngine
+
+    eng = CnnServeEngine(None, apply, plan, slots=8, **engine_kw)
+    n = len(images)
+    reqs = [eng.submit(image=images[i]) for i in range(n)]
+    K.reset_launch_counts()
+    eng.run()
+    counts = K.launch_counts()
+    print(f"path {label}: stats {eng.stats} forwards {eng.ncalls} "
+          f"launches {counts}", flush=True)
+    check(all(r.done and r.error is None for r in reqs),
+          f"{label}: a request failed: "
+          f"{[repr(r.error) for r in reqs if r.error]}")
+    check(eng.stats["completed"] == n and eng.stats["failed"] == 0
+          and eng.stats["float_retries"] == 0,
+          f"{label}: serving stats {eng.stats}")
+    want = {**dict.fromkeys(counts, 0),
+            **{k: v * eng.ncalls for k, v in per_forward.items()}}
+    check(counts == want, f"{label}: launches {counts} != {want}")
+    served = torch.from_numpy(np.stack([r.logits for r in reqs]))
+    check(served.shape == (n, classes)
+          and bool(torch.isfinite(served).all()),
+          f"{label}: logits not finite of the expected shape")
+
+    def batched(p):
+        fwd = p.jit_forward(apply)
+        return torch.cat([head_logits(fwd(images[i:i + 8].to(dev))).cpu()
+                          for i in range(0, n, 8)])
+
+    check(torch.equal(served, batched(plan)),
+          f"{label}: served logits differ from a direct apply")
+    plain = batched(pplan)
+    err = (served - plain).abs().max().item()
+    check(torch.equal(served, plain),
+          f"{label}: kernel forward differs from the plain-backend "
+          f"forward (max |diff| {err})")
+    print(f"path {label}: {n} served logits bit-equal to direct apply and "
+          f"to the plain-version forward (max |diff| {err})", flush=True)
+    return eng, served, counts
 
 
 def register_plain_backend():
@@ -2876,6 +2949,291 @@ def lm_train_phase(dev, card, detail, launches, seed):
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
 
 
+#: phase 17's serve CLI runs: full-width VGG16 on the paper's policy,
+#: once on a 1x1 (data, model) mesh and once without (subprocesses)
+DIST_CLI = ("--model", "vgg16", "--scale", "full", "--bfp", "--prequant",
+            "--strict-backend")
+#: alternating pairs of the unbound / bound batch-8 ResNet-50 forward
+DIST_AB_PAIRS = 10
+
+
+def dist_resnet50(dev, card, detail, launches, mesh, r50, r50_served):
+    """``sharded_resnet50_full``: phase 8's ResNet-50 plan served on the
+    1x1 mesh, then the forward timed with and without the binding."""
+    import statistics
+
+    from repro_torch.dist import sharding as DS
+    from repro_torch.serve.cnn import CnnServeEngine
+
+    label = "sharded_resnet50_full"
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always", DS.ShardingRuleDropped)
+        eng, served, counts = serve_check(
+            label, r50["plan"], r50["apply"], r50["images"],
+            MODEL_LAUNCHES["resnet50_full"], dev, 1000, r50["pplan"],
+            mesh=mesh, rules=DS.DEFAULT_RULES, device=dev)
+    launches[label] = counts
+    drops = [str(w.message) for w in rec
+             if issubclass(w.category, DS.ShardingRuleDropped)]
+    check(eng.mesh is mesh and not drops,
+          f"{label}: engine mesh {eng.mesh}, rules dropped {drops}")
+    check(torch.equal(served, r50_served),
+          f"{label}: logits differ from the unsharded engine's (max |diff| "
+          f"{diff(served, r50_served)})")
+    check(counts == launches["resnet50_full"],
+          f"{label}: launches {counts} != the unsharded run's "
+          f"{launches['resnet50_full']}")
+    print(f"path {label}: 16 requests on a 1x1 (data, model) mesh with "
+          f"DEFAULT_RULES: logits torch.equal to the unsharded engine's "
+          f"and to the plain versions', launches equal to the unsharded "
+          f"run's, no rule dropped", flush=True)
+
+    free = CnnServeEngine(None, r50["apply"], r50["plan"], slots=8,
+                          device=dev)
+    xb = r50["images"][:8].to(dev)
+
+    def forward_ms(e):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        e._logits(e._fwd, xb)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    def host_us(e, n=2000):           # the engine's own host work
+        t0 = time.perf_counter()
+        for _ in range(n):
+            e._logits(lambda x: x, xb)
+        return (time.perf_counter() - t0) / n * 1e6
+
+    forward_ms(free), forward_ms(eng)
+    times = {"unbound": [], "bound": []}
+    for i in range(DIST_AB_PAIRS):
+        for tag, e in ((("unbound", free), ("bound", eng)) if i % 2 == 0
+                       else (("bound", eng), ("unbound", free))):
+            times[tag].append(forward_ms(e))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    host = {"unbound": host_us(free), "bound": host_us(eng)}
+    detail[label] = {"forward_ms": med, "forward_ms_all": times,
+                     "host_us": host}
+    span = {k: (min(v), max(v)) for k, v in times.items()}
+    print(f"time {label}: batch-8 forward median unbound {med['unbound']:.4f}"
+          f" ms ({span['unbound'][0]:.4f}-{span['unbound'][1]:.4f}), bound "
+          f"{med['bound']:.4f} ms ({span['bound'][0]:.4f}-"
+          f"{span['bound'][1]:.4f}) ({DIST_AB_PAIRS} alternating "
+          f"pairs, CUDA events); the engine's host work per forward "
+          f"{host['unbound']:.2f} us unbound, {host['bound']:.2f} us bound "
+          f"(+{host['bound'] - host['unbound']:.2f} us)  [{card}]",
+          flush=True)
+
+
+def dist_cli(card, detail):
+    """``serve_cnn_mesh_vgg16_full``: the serve CLI with ``--mesh 1x1``
+    and without, as two subprocesses side by side on the card: both exit
+    0, the same logits."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"),
+                    os.environ.get("PYTHONPATH")) if p))
+    label = "serve_cnn_mesh_vgg16_full"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_cli_")
+    logits, row, procs = {}, {}, {}
+    detail[label] = row
+    t0 = time.perf_counter()
+    try:
+        for tag, extra in (("mesh", ("--mesh", "1x1")), ("no_mesh", ())):
+            out = os.path.join(tmp, f"{tag}.npy")
+            argv = [*DIST_CLI, *extra, "--logits-out", out]
+            procs[tag] = (argv, out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve_cnn",
+                 *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        for tag, (argv, out, proc) in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            secs = time.perf_counter() - t0
+            lines = stdout.strip().splitlines()
+            check(proc.returncode == 0 and lines and
+                  re.search(r"req/s", lines[-1]) and os.path.exists(out),
+                  f"cli {' '.join(argv)}: rc {proc.returncode}\n{stdout}"
+                  f"\n{stderr[-3000:]}")
+            logits[tag] = np.load(out)
+            row[tag] = {"seconds": secs, "last_line": lines[-1]}
+            print(f"cli {' '.join(argv[:-2])}: rc 0 after {secs:.2f} s: "
+                  f"{lines[-1]}  [{card}]", flush=True)
+    finally:
+        for _, _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check("mesh=1x1" in row["mesh"]["last_line"]
+          and logits["mesh"].shape == (16, 1000)
+          and np.isfinite(logits["mesh"]).all()
+          and np.array_equal(logits["mesh"], logits["no_mesh"]),
+          f"{label}: --mesh 1x1 logits differ from the run without a mesh")
+    print(f"path {label}: 16 logits of --mesh 1x1 equal to the run "
+          f"without a mesh (both runs side by side)", flush=True)
+
+
+def dist_restore(dev, card, detail, mesh, pol, vgg_params):
+    """``restore_sharded_vgg16``: phase 4's VGG16 saved float32 and
+    ``bfp_packed``, restored with ``sharding_fn`` onto the card and onto
+    the mesh: every leaf equal to the plain restore; the ``"dequant"``
+    weights placed, the ``"prequant"`` sidecars not."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch import _tree
+    from repro_torch.checkpoint import store
+
+    label = "restore_sharded_vgg16"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_ckpt_")
+    on_card = lambda i: dev                                 # noqa: E731
+    on_mesh = lambda i: (mesh, [Replicate(), Replicate()])  # noqa: E731
+    t0 = time.perf_counter()
+    n_placed = {}
+    try:
+        store.save(os.path.join(tmp, "f32"), 0, vgg_params)
+        store.save(os.path.join(tmp, "packed"), 0, vgg_params,
+                   format="bfp_packed", policy=pol)
+        for fmt, mode, fns in (("f32", "prequant", (on_card, on_mesh)),
+                               ("packed", "dequant", (on_card, on_mesh)),
+                               ("packed", "prequant", (on_mesh,))):
+            base = os.path.join(tmp, fmt)
+            want = _tree.leaves_with_path(
+                store.restore(base, vgg_params, packed=mode)[0])
+            for fn in fns:
+                got = _tree.leaves_with_path(store.restore(
+                    base, vgg_params, packed=mode, sharding_fn=fn)[0])
+                tag = f"{fmt}/{mode}/{'mesh' if fn is on_mesh else 'card'}"
+                check(len(got) == len(want)
+                      and all(p == q for (p, _), (q, _) in zip(got, want)),
+                      f"{label} {tag}: tree differs")
+                side = [bool(p) and p[-1] in ("m", "s") for p, _ in got]
+                placed = [isinstance(v, DTensor) for _, v in got]
+                vals = [v.full_tensor() if d else v
+                        for (_, v), d in zip(got, placed)]
+                check(all(torch.equal(v, w) and v.device == w.device
+                          for v, (_, w) in zip(vals, want)),
+                      f"{label} {tag}: a leaf differs from the plain restore")
+                want_placed = ([not s for s in side] if fn is on_mesh
+                               else [False] * len(got))
+                check(placed == want_placed,
+                      f"{label} {tag}: placed leaves {sum(placed)} of "
+                      f"{len(placed)}, sidecars {sum(side)}")
+                n_placed[tag] = (sum(placed), len(placed))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    detail[label] = {"seconds": secs, "placed": n_placed}
+    print(f"path {label}: every leaf equal to the plain restore; DTensor "
+          f"leaves (placed / all) {n_placed}: the dequant weights placed, "
+          f"the prequant sidecars not ({secs:.2f} s with the saves)  "
+          f"[{card}]", flush=True)
+
+
+def dist_lm(dev, card, seed, detail, launches, mesh):
+    """``lm_tinyllama_bound``: one full-width TinyLlama decode step and
+    one forward under ``axis_rules(DEFAULT_RULES, 1x1 mesh)``, against the
+    same calls unbound."""
+    from repro_torch import engine as EG
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.policy import PALLAS_TILED
+    from repro_torch.dist import sharding as DS
+    from repro_torch.models.lm import model as LM
+
+    label = "lm_tinyllama_bound"
+    cfg = ARCHS["tinyllama-1.1b"]
+    pol = PALLAS_TILED.with_(straight_through=False)
+    params = LM.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    plan = EG.bind(params, pol, tree="lm", strict=True, device=dev)
+    del params
+    g = torch.Generator().manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 1), generator=g).to(dev)
+    ftoks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g).to(dev)
+    per_call = lm_launches_per_call(cfg)
+    per_fwd = lm_launches_per_call(cfg, forward=True)
+
+    def run():
+        cache = LM.init_cache(cfg, 4, 256, device=dev)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            lg, cache = LM.decode_step(plan.params, cfg, cache, toks, 0,
+                                       plan)
+            c_step = nonzero(K.launch_counts())
+            K.reset_launch_counts()
+            flg, _ = LM.forward(plan.params, cfg, ftoks, policy=plan)
+            c_fwd = nonzero(K.launch_counts())
+        return (lg, cache, flg), c_step, c_fwd
+
+    free, s_free, f_free = run()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always", DS.ShardingRuleDropped)
+        with DS.axis_rules(DS.DEFAULT_RULES, mesh):
+            bound, s_bound, f_bound = run()
+    drops = [str(w.message) for w in rec
+             if issubclass(w.category, DS.ShardingRuleDropped)]
+    launches[label] = {k: s_bound.get(k, 0) + f_bound.get(k, 0)
+                       for k in K.launch_counts()}
+    check(s_free == s_bound == per_call and f_free == f_bound == per_fwd,
+          f"{label}: launches step {s_free} / {s_bound}, forward {f_free} / "
+          f"{f_bound}; want {per_call} and {per_fwd}")
+    check(not drops, f"{label}: rules dropped {drops}")
+    check(bool(torch.isfinite(free[0]).all())
+          and bool(torch.isfinite(free[2]).all()),
+          f"{label}: logits not finite")
+    check(same_tree(free, bound, nan_aware=False),
+          f"{label}: bound decode step / forward differ from unbound "
+          f"(max |diff| {tree_diff(free, bound)})")
+    detail[label] = {"step_launches": s_bound, "forward_launches": f_bound}
+    print(f"path {label}: decode step (B = 4) and forward (B = 2, S = 64) "
+          f"under axis_rules(DEFAULT_RULES, 1x1 mesh) torch.equal to "
+          f"unbound (logits and cache), launches {s_bound} a step and "
+          f"{f_bound} a forward both ways, no rule dropped  [{card}]",
+          flush=True)
+
+
+def dist_phase(dev, card, detail, launches, seed, pol, r50, r50_served,
+               vgg_params):
+    """Phase 17: logical-axis sharding on a 1x1 mesh of the card (see the
+    module docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as DS
+    from repro_torch.launch.mesh import make_mesh
+
+    t17 = time.perf_counter()
+    print(card_line(), flush=True)      # the card under phase 17's numbers
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        check(mesh.device_type == "cuda" and dist.get_world_size() == 1
+              and DS.mesh_axis_sizes(mesh) == {"data": 1, "model": 1},
+              f"phase 17: mesh {mesh}, world {dist.get_world_size()}")
+        for name, call in (
+                ("dist_resnet50", lambda: dist_resnet50(
+                    dev, card, detail, launches, mesh, r50, r50_served)),
+                ("dist_cli", lambda: dist_cli(card, detail)),
+                ("dist_restore", lambda: dist_restore(
+                    dev, card, detail, mesh, pol, vgg_params)),
+                ("dist_lm", lambda: dist_lm(dev, card, seed, detail,
+                                            launches, mesh))):
+            t0 = time.perf_counter()
+            call()
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"phase 17 {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+
+
 def pol_lenet():
     """LeNet's kernel policy: PALLAS_TILED at block 16 (c2's K = 400 and
     fc1's 1568 are multiples), strict round to nearest."""
@@ -3399,56 +3757,25 @@ def main() -> int:
 
     def serve(label, params, hw, per_forward, apply=vgg.apply):
         plan = EG.bind(params, pol, tree="cnn", strict=True)
-        eng = CnnServeEngine(None, apply, plan, slots=8)
         images = torch.randn((16, hw, hw, 3), generator=gen)
-        reqs = [eng.submit(image=images[i]) for i in range(16)]
-        K.reset_launch_counts()
-        eng.run()
-        counts = K.launch_counts()
-        print(f"path {label}: stats {eng.stats} forwards {eng.ncalls} "
-              f"launches {counts}", flush=True)
-        check(all(r.done and r.error is None for r in reqs),
-              f"{label}: a request failed: "
-              f"{[repr(r.error) for r in reqs if r.error]}")
-        check(eng.stats["completed"] == 16 and eng.stats["failed"] == 0
-              and eng.stats["float_retries"] == 0,
-              f"{label}: serving stats {eng.stats}")
-        want = {**dict.fromkeys(counts, 0),
-                **{k: v * eng.ncalls for k, v in per_forward.items()}}
-        check(counts == want, f"{label}: launches {counts} != {want}")
-        served = torch.from_numpy(np.stack([r.logits for r in reqs]))
-        served_logits[label] = served
-        check(served.shape == (16, 1000 if hw == 224 else 10)
-              and bool(torch.isfinite(served).all()),
-              f"{label}: logits not finite of the expected shape")
-        fwd = plan.jit_forward(apply)
-        direct = torch.cat([head_logits(fwd(images[i:i + 8].to(dev))).cpu()
-                            for i in (0, 8)])
-        check(torch.equal(served, direct),
-              f"{label}: served logits differ from a direct apply")
         pplan = EG.bind(params, pol.with_(backend="plain"), tree="cnn",
                         strict=True)
-        pfwd = pplan.jit_forward(apply)
-        plain = torch.cat([head_logits(pfwd(images[i:i + 8].to(dev))).cpu()
-                           for i in (0, 8)])
-        err = (served - plain).abs().max().item()
-        check(torch.equal(served, plain),
-              f"{label}: kernel forward differs from the plain-backend "
-              f"forward (max |diff| {err})")
-        print(f"path {label}: 16 served logits bit-equal to direct apply and "
-              f"to the plain-version forward (max |diff| {err})", flush=True)
-        return plan, eng, images, counts
+        eng, served, counts = serve_check(
+            label, plan, apply, images, per_forward, dev,
+            1000 if hw == 224 else 10, pplan)
+        served_logits[label] = served
+        return plan, eng, images, counts, pplan
 
     # each path's own launches: counts zeroed just before it, read after
     launches = {}
     full_params = vgg.init(gen, device=dev)
-    plan, eng, images, launches[full_p] = serve(
+    plan, eng, images, launches[full_p], _ = serve(
         full_p, full_params, 224,
         {"bfp_conv2d": 3, "bfp_conv2d_pformat": 3, "bfp_conv2d_prequant": 10,
          "bfp_conv2d_xformat": 10, "bfp_matmul_prequant": 3,
          "bfp_matmul_xformat": 3, "bfp_matmul": 0, "bfp_matmul_pformat": 0,
          **dict.fromkeys(WIRE_COUNTERS, 0)})
-    red_plan, _, red_images, launches[red_p] = serve(
+    red_plan, _, red_images, launches[red_p], _ = serve(
         red_p, MODELS["vgg16"].init(gen, reduced=True, device=dev), 32,
         {"bfp_conv2d": 13, "bfp_conv2d_pformat": 13,
          "bfp_conv2d_prequant": 0, "bfp_conv2d_xformat": 0,
@@ -4034,11 +4361,11 @@ def main() -> int:
                                                      device=dev), gen)
         apply = MODELS[name].apply
         hw = MODELS[name].input_shape(reduced=False)[0]
-        mplan, meng, mimgs, launches[label] = serve(
+        mplan, meng, mimgs, launches[label], mpplan = serve(
             label, params, hw, MODEL_LAUNCHES[label], apply=apply)
         fms, rps = time_forward(mplan, apply, mimgs), time_serve(meng, mimgs)
         models[label] = {"params": params, "plan": mplan, "images": mimgs,
-                         "apply": apply}
+                         "apply": apply, "pplan": mpplan}
         detail[label] = {"forward_ms": fms, "serve_req_per_s": rps}
         print(f"time {label}: forward batch 8 {fms:.4f} ms, served 16 "
               f"requests at {rps:.2f} req/s  [{card}]", flush=True)
@@ -4219,7 +4546,12 @@ def main() -> int:
     # -- 16. LM training -----------------------------------------------------
     lm_train_phase(dev, card, detail, launches, args.seed)
 
-    # -- 17. results ---------------------------------------------------------
+    # -- 17. logical-axis sharding on a 1x1 mesh ---------------------------
+    dist_phase(dev, card, detail, launches, args.seed, pol,
+               models["resnet50_full"], served_logits["resnet50_full"],
+               full_params)
+
+    # -- 18. results ---------------------------------------------------------
     kernels = []
     for name in SOURCES:
         path = next(p for p in launches if launches[p][name] > 0)

@@ -14,8 +14,10 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Tuple
 
+import torch
+
 __all__ = ["flatten", "leaves_with_path", "unflatten", "map_with_path",
-           "tree_map", "keystr", "describe", "GetAttrKey"]
+           "tree_map", "keystr", "describe", "GetAttrKey", "is_float"]
 
 Path = Tuple[Any, ...]
 IsLeaf = Optional[Callable[[Any], bool]]
@@ -25,6 +27,12 @@ class GetAttrKey(str):
     """The key of a NamedTuple field in a path (``jax.tree_util``'s
     ``GetAttrKey``): the field's name, written ``.name`` by
     :func:`keystr`."""
+
+
+def is_float(x: Any) -> bool:
+    """A floating-point tensor leaf: what the optimizers update, the
+    gradient wire compresses and autograd differentiates."""
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
 
 
 def _is_namedtuple(node: Any) -> bool:

@@ -233,12 +233,15 @@ def restore(base: str, tree_like, step: Optional[int] = None,
       * ``"keep"``: the raw :class:`PackedBFP` containers (host bytes;
         ``engine.bind`` unpacks them onto the plan's device).
 
-    ``sharding_fn`` (elastic re-sharding) arrives with the dist slice.
+    ``sharding_fn(i)`` (elastic re-sharding) places the tensor of leaf
+    ``i`` (in flatten order): it returns a ``torch.device`` (or a string
+    naming one), and the leaf moves there, or a ``(DeviceMesh,
+    placements)`` pair, and the leaf becomes ``distribute_tensor(leaf,
+    mesh, placements)`` (every rank read the same bytes, so each takes
+    its own shard with no collective).  As in ``repro`` this places the
+    plain leaves and the ``"dequant"`` weights; ``"prequant"`` and
+    ``"keep"`` leaves, and Python scalars, are left as they are.
     """
-    if sharding_fn is not None:
-        raise NotImplementedError(
-            "restore(sharding_fn=): sharded placement is not ported yet "
-            "(ROADMAP Queue 1 item 8, the dist slice)")
     if packed not in ("prequant", "dequant", "keep"):
         raise ValueError(f"packed must be 'prequant', 'dequant', or "
                          f"'keep'; got {packed!r}")
@@ -274,16 +277,28 @@ def restore(base: str, tree_like, step: Optional[int] = None,
                 f"checkpoint leaf {i} shape {tuple(new.shape)} != model "
                 f"{tuple(_shape(ref))} — architecture mismatch")
     out: List[Any] = []
-    for leaf, ref in zip(leaves, leaves_ref):
-        if not is_packed(leaf):
-            out.append(_as_template(leaf, ref, dev))
-        elif packed == "keep":
-            out.append(leaf)
-        elif packed == "dequant":
-            out.append(unpack_dequant(leaf, dev))
-        else:
-            out.append(unpack_prequant(leaf, dev))
+    for i, (leaf, ref) in enumerate(zip(leaves, leaves_ref)):
+        if is_packed(leaf) and packed != "dequant":
+            out.append(leaf if packed == "keep"
+                       else unpack_prequant(leaf, dev))
+            continue
+        t = (unpack_dequant(leaf, dev) if is_packed(leaf)
+             else _as_template(leaf, ref, dev))
+        if sharding_fn is not None and isinstance(t, torch.Tensor):
+            t = _place(t, sharding_fn(i))
+        out.append(t)
     return _tree.unflatten(treedef, out), step
+
+
+def _place(t: torch.Tensor, target: Any) -> torch.Tensor:
+    """``t`` on a device, or distributed over a ``(mesh, placements)``
+    pair (see :func:`restore`)."""
+    if isinstance(target, (str, torch.device)):
+        return t.to(target)
+    mesh, placements = target
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
 
 
 class Checkpointer:

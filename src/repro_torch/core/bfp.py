@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -41,6 +41,8 @@ __all__ = [
 #: Exponent used for an all-zero block (any finite value works; a very
 #: negative one keeps dequantized zeros exact and the step harmless).
 ZERO_BLOCK_EXP = -126
+
+AmaxFn = Callable[[torch.Tensor], torch.Tensor]
 
 
 def pow2(e) -> torch.Tensor:
@@ -114,13 +116,19 @@ def _mantissa_dtype(bits: int) -> torch.dtype:
     return torch.int32
 
 
-def block_exponent(x: torch.Tensor, axes: Tuple[int, ...]) -> torch.Tensor:
+def block_exponent(x: torch.Tensor, axes: Tuple[int, ...],
+                   reduce_amax: Optional[AmaxFn] = None) -> torch.Tensor:
     """Per-block exponent max_i floor(log2 |x_i|) over ``axes`` (keepdims).
 
     frexp is exact for every finite float, subnormals included:
     x = f * 2^e with f in [0.5, 1)  =>  floor(log2|x|) = e - 1.
+    ``reduce_amax`` maps the block maxima before the exponent is taken
+    (``dist.sharding.group_amax``: the max over the rows other ranks
+    hold).
     """
     amax = torch.amax(x.abs(), dim=axes, keepdim=True)
+    if reduce_amax is not None:
+        amax = reduce_amax(amax)
     _, e = torch.frexp(amax)
     return torch.where(amax > 0, e - 1,
                        torch.full_like(e, ZERO_BLOCK_EXP)).to(torch.int32)
@@ -142,12 +150,14 @@ def _apply_rounding(v: torch.Tensor, rounding: Rounding,
 
 def quantize(x: torch.Tensor, bits: int, axes: Tuple[int, ...],
              rounding: Rounding = Rounding.ROUND,
-             noise: Optional[torch.Tensor] = None) -> BFPBlock:
-    """Block-format ``x``: one shared exponent per block spanning ``axes``."""
+             noise: Optional[torch.Tensor] = None,
+             reduce_amax: Optional[AmaxFn] = None) -> BFPBlock:
+    """Block-format ``x``: one shared exponent per block spanning ``axes``
+    (``reduce_amax``: see :func:`block_exponent`)."""
     if not 2 <= bits <= 24:
         raise ValueError(f"bits (incl. sign) must be in [2, 24], got {bits}")
     x = x.to(torch.float32)
-    eps = block_exponent(x, axes)
+    eps = block_exponent(x, axes, reduce_amax)
     step = pow2(eps - (bits - 2))
     lim = 2 ** (bits - 1) - 1
     m = _apply_rounding(x / step, rounding, noise)

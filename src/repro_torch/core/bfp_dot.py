@@ -44,6 +44,7 @@ import torch
 from repro_torch.core import bfp
 from repro_torch.core.bfp import BFPBlock, Scheme
 from repro_torch.core.policy import BFPPolicy
+from repro_torch.dist import sharding as DS
 
 __all__ = ["bfp_dot", "bfp_matmul_2d", "bfp_matmul_2d_prequant",
            "quantize_activations", "quantize_weights"]
@@ -63,9 +64,13 @@ def quantize_weights(w: torch.Tensor, policy: BFPPolicy) -> BFPBlock:
 
 def quantize_activations(x2d: torch.Tensor, policy: BFPPolicy,
                          noise: Optional[torch.Tensor] = None) -> BFPBlock:
-    """Block-format a [B, K] activation matrix (paper I, transposed)."""
+    """Block-format a [B, K] activation matrix (paper I, transposed).
+    EQ2's and EQ4's block is the whole matrix, whose rows are the batch's:
+    inside a forward split over a data group its max spans the group
+    (``dist.sharding.group_amax``)."""
     if policy.scheme in (Scheme.EQ2, Scheme.EQ4):
-        return bfp.quantize(x2d, policy.l_i, (0, 1), policy.rounding, noise)
+        return bfp.quantize(x2d, policy.l_i, (0, 1), policy.rounding, noise,
+                            DS.group_amax)
     if policy.scheme in (Scheme.EQ3, Scheme.EQ5):
         return bfp.quantize(x2d, policy.l_i, (1,), policy.rounding, noise)
     return bfp.bfp_quantize_matrix(x2d, policy.l_i, "w", Scheme.TILED,

@@ -24,7 +24,16 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 
 __all__ = ["LMBatchSpec", "lm_batch", "lm_tokens", "image_batch",
-           "host_shard"]
+           "host_shard", "step_generator"]
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """A CPU generator seeded from (``seed``, ``step``).  A CPU
+    ``torch.Generator`` keeps only the low 32 bits of its seed, so the
+    pair is mixed into them by ``np.random.SeedSequence``: every seed
+    and every step gives its own stream."""
+    return torch.Generator().manual_seed(int(
+        np.random.SeedSequence([seed, step]).generate_state(1)[0]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,10 +73,7 @@ def lm_batch(spec: LMBatchSpec, step: int, *, device: DeviceLike = "cuda"
     rolled by one (the last target wraps round, as in ``repro``)."""
     dev = resolve_device(device)
     p = min(spec.pattern_vocab, spec.vocab_size)
-    # a CPU generator keeps only the low 32 bits of its seed: mix (seed,
-    # step) into them
-    gen = torch.Generator().manual_seed(int(
-        np.random.SeedSequence([spec.seed, step]).generate_state(1)[0]))
+    gen = step_generator(spec.seed, step)
     b, s = spec.global_batch, spec.seq_len
     t0 = torch.randint(0, p, (b, 2), generator=gen)
     noise = torch.rand((b, s), generator=gen) < 0.05

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import _tree
+from repro_torch._tree import is_float
 from repro_torch._device import DeviceLike
 from repro_torch.core import bfp
 from repro_torch.core import packed as PK
@@ -61,10 +62,6 @@ def validate_wire_block(block: int, tile_k: Optional[int] = None) -> None:
                 f"wire block {block} is not a multiple of the TILED "
                 f"tile_k {tile_k} — wire blocks would straddle execution "
                 f"tiles and mix exponent groups")
-
-
-def _is_float(x) -> bool:
-    return isinstance(x, torch.Tensor) and x.is_floating_point()
 
 
 def _blocks(g: torch.Tensor, bits: int, block: int) -> bfp.BFPBlock:
@@ -158,7 +155,7 @@ def wire_report(tree: Any, bits: int, block: int = WIRE_BLOCK,
     leaves = _tree.flatten(tree)[0]
     for leaf in leaves:
         nraw = _nbytes(leaf)
-        if _is_float(leaf) or (isinstance(leaf, np.ndarray)
+        if is_float(leaf) or (isinstance(leaf, np.ndarray)
                                and np.issubdtype(leaf.dtype, np.floating)):
             w = pack_leaf(leaf, bits, block, tile_k, variable).nbytes
         else:
@@ -207,7 +204,7 @@ def packed_allreduce(grads: Any, residual: Any, bits: int = 8,
 
     def one(g, r):
         nonlocal n_bytes
-        if not _is_float(g):
+        if not is_float(g):
             return g, r
         qs, rs = [], []
         for wi in range(g.shape[0]):
@@ -243,7 +240,7 @@ def make_compressor(bits: int = 8, block: int = WIRE_BLOCK,
 
     def transform(grads: Any, residual: Any) -> Tuple[Any, Any]:
         def one(g, r):
-            if not _is_float(g):
+            if not is_float(g):
                 return g, r
             e = g.float() + r
             q = quantize_leaf(e, bits, block)

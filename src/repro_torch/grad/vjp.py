@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import _tree
+from repro_torch._tree import is_float
 from repro_torch.core.bfp import Scheme
 from repro_torch.core.bfp_dot import quantize_activations, quantize_weights
 from repro_torch.core.conv_utils import conv_weight_matrix, im2col
@@ -271,17 +272,13 @@ def value_and_grad(loss_fn, params):
     themselves as their gradient (they pass through an update
     untouched)."""
     leaves, treedef = _tree.flatten(params)
-    live = [p.detach().requires_grad_() if _is_float(p) else p
+    live = [p.detach().requires_grad_() if is_float(p) else p
             for p in leaves]
-    wrt = [p for p in live if _is_float(p)]
+    wrt = [p for p in live if is_float(p)]
     with torch.enable_grad():
         loss, aux = loss_fn(_tree.unflatten(treedef, live))
         gs = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
                                       materialize_grads=True))
-    grads = _tree.unflatten(treedef, [next(gs) if _is_float(p) else p
+    grads = _tree.unflatten(treedef, [next(gs) if is_float(p) else p
                                       for p in live])
     return (loss.detach(), _tree.tree_map(torch.Tensor.detach, aux)), grads
-
-
-def _is_float(x) -> bool:
-    return isinstance(x, torch.Tensor) and x.is_floating_point()

@@ -11,9 +11,15 @@ MULTI-TENANT models in one process:
       --scale full --requests 16 --bfp --prequant --strict-backend
   PYTHONPATH=src python -m repro_torch.launch.serve_cnn \\
       --tenants lenet,cifarnet --requests 12 --bfp
+  PYTHONPATH=src python -m repro_torch.launch.serve_cnn --model vgg16 \\
+      --mesh 1x1 --bfp --prequant --logits-out logits.npy
 
 Runs on the card; ``--device cpu`` serves on the CPU (the kernels' plain
-versions).  Weights come from ``torch.Generator`` seed 0 and images from
+versions).  ``--mesh DxM`` serves on a (data, model) mesh of the
+``--device``'s type with ``DEFAULT_RULES`` (the request batch split over
+"data"); D * M must be the process group's world size (one process, so
+1x1, unless the caller started a group).  ``--logits-out`` saves the
+served logits, one row per request in request order, as a ``.npy``.  Weights come from ``torch.Generator`` seed 0 and images from
 seed 1.  ``--bfp`` is the paper's policy (EQ4, L = 8) on the emulated
 datapath, as in ``repro``.
 """
@@ -22,10 +28,12 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.policy import PAPER_DEFAULT
+from repro_torch.dist.sharding import DEFAULT_RULES
 from repro_torch.models.cnn import MODELS
 from repro_torch.serve.cnn import CnnServeEngine, ImageRequest
 
@@ -90,8 +98,8 @@ def main(argv=None):
     ap.add_argument("--strict-backend", action="store_true",
                     help="refuse backend downgrades at admission")
     ap.add_argument("--mesh", metavar="DxM",
-                    help="data x model mesh (sharded serving; not ported "
-                         "yet)")
+                    help="data x model mesh, e.g. 1x1 (device count must "
+                         "match); shards the request batch axis")
     ap.add_argument("--batching", default="continuous",
                     choices=["continuous", "bucket"],
                     help="run partially-filled steps immediately vs the "
@@ -102,11 +110,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where the engine serves (default cuda; cpu runs "
                          "the kernels' plain versions)")
+    ap.add_argument("--logits-out", metavar="PATH",
+                    help="save the served logits (request order) as .npy")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        ap.error("--mesh: sharded CNN serving is not ported yet (ROADMAP "
-                 "Queue 1 item 8, the dist slice)")
     dev = resolve_device(args.device)
     policy = (PAPER_DEFAULT.with_(straight_through=False) if args.bfp
               else None)
@@ -120,11 +127,21 @@ def main(argv=None):
     reduced = args.scale == "smoke"
     params = spec.init(torch.Generator().manual_seed(0), reduced=reduced,
                        device=dev)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_mesh
+
+        try:
+            d, m = (int(v) for v in args.mesh.lower().split("x"))
+            mesh = make_mesh((d, m), ("data", "model"),
+                             device_type=dev.type)
+        except ValueError as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
     eng = CnnServeEngine(params, spec.apply, policy, slots=args.slots,
                          prequant=args.prequant,
                          strict_backend=args.strict_backend,
                          batching=args.batching, max_wait=args.max_wait,
-                         device=dev)
+                         mesh=mesh, rules=DEFAULT_RULES, device=dev)
     print(f"bound plan: {eng.plan!r}")
     h, w, c = spec.input_shape(reduced=reduced)
     gen = torch.Generator().manual_seed(1)
@@ -135,7 +152,7 @@ def main(argv=None):
     # what they need), through a throwaway engine on the same plan —
     # Plan.jit_forward shares the forward
     warm = CnnServeEngine(None, spec.apply, eng.plan, slots=args.slots,
-                          device=dev)
+                          mesh=mesh, rules=DEFAULT_RULES, device=dev)
     for b in warm.buckets:
         for _ in range(b):
             warm.submit(image=torch.zeros((h, w, c)))
@@ -148,6 +165,8 @@ def main(argv=None):
     served = [r for r in reqs if r.done]
     for r in served[:4]:
         print(f"req {r.rid}: label={r.label}")
+    if args.logits_out:
+        np.save(args.logits_out, np.stack([r.logits for r in reqs]))
     print(f"{len(served)} requests in {dt:.2f}s "
           f"({len(served) / dt:.1f} req/s) model={args.model} "
           f"bfp={args.bfp} prequant={args.prequant} mesh={args.mesh}")

@@ -11,8 +11,9 @@ are.  Everything else here is plain float math on tensors, as in the
 reference (einsums, not kernels); attention is written out in the
 reference's order of operations rather than calling
 ``scaled_dot_product_attention``, whose numerics differ.  The
-reference's ``dist.sharding.shard`` annotations have no mesh to act on
-until the dist slice and are left out.
+reference's ``dist.sharding.shard`` annotations stand at its call sites
+(q / k / v, the attention output, the SwiGLU hidden): the identity
+outside an ``axis_rules`` binding, and on plain tensors inside one.
 
 Initializers draw from an explicit ``torch.Generator`` on its own device
 and place the result on ``device``; a leading ``lead`` shape stacks one
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import engine as EG
 from repro_torch.configs.base import LMConfig
+from repro_torch.dist.sharding import shard
 from repro_torch.engine import PolicyLike, join_path
 
 __all__ = ["rmsnorm", "rmsnorm_init", "rope", "mrope", "attention_init",
@@ -167,6 +169,9 @@ def _qkv(p, cfg: LMConfig, x, xkv, policy: Policy, path=None):
                join_path(path, "wk")).reshape(b, skv, cfg.n_kv_heads, cfg.dh)
     v = linear(p["wv"], xkv, policy,
                join_path(path, "wv")).reshape(b, skv, cfg.n_kv_heads, cfg.dh)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
@@ -284,6 +289,7 @@ def attention(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
         if causal and not cross:
             mask = _causal_mask(s, w, x.device)[None, None, None]
         out = _sdpa(q, k, v, cfg, mask)
+    out = shard(out, "batch", "seq", "heads", None)
     b = x.shape[0]
     return linear(p["wo"], out.reshape(b, s, -1), policy,
                   join_path(path, "wo"))
@@ -373,4 +379,5 @@ def swiglu(p, x: torch.Tensor, policy: Policy = None,
            path: Optional[str] = None) -> torch.Tensor:
     h = F.silu(linear(p["w1"], x, policy, join_path(path, "w1"))) \
         * linear(p["w3"], x, policy, join_path(path, "w3"))
+    h = shard(h, "batch", "seq", "ffn")
     return linear(p["w2"], h, policy, join_path(path, "w2"))

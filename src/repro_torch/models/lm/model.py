@@ -40,6 +40,7 @@ from repro_torch import _tree
 from repro_torch import engine as EG
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import LMConfig
+from repro_torch.dist.sharding import shard
 from repro_torch.models.lm import common as C
 from repro_torch.models.lm import griffin as G
 from repro_torch.models.lm import moe as M
@@ -88,8 +89,9 @@ def _attn_block(p, cfg: LMConfig, x, positions, policy, enc=None):
         x = x + C.attention(p["xattn"], cfg,
                             C.rmsnorm(p["lnx"], x, cfg.norm_eps), positions,
                             policy, xkv=enc, path="xattn")
-    return x + C.swiglu(p["ffn"], C.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                        policy, path="ffn")
+    x = x + C.swiglu(p["ffn"], C.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                     policy, path="ffn")
+    return shard(x, "batch", "seq_res", "embed")
 
 
 def _rwkv_block_init(gen, cfg: LMConfig, lead, dev):
@@ -105,9 +107,9 @@ def _rwkv_block(p, cfg: LMConfig, x, policy):
                        device=x.device)
     x = x + R.time_mix(p["tm"], cfg, C.rmsnorm(p["ln1"], x, cfg.norm_eps),
                        zero, policy)
-    return x + R.channel_mix(p["cm"], cfg,
-                             C.rmsnorm(p["ln2"], x, cfg.norm_eps), zero,
-                             policy)
+    x = x + R.channel_mix(p["cm"], cfg,
+                          C.rmsnorm(p["ln2"], x, cfg.norm_eps), zero, policy)
+    return shard(x, "batch", "seq_res", "embed")
 
 
 def _rec_block_init(gen, cfg: LMConfig, lead, dev):
@@ -125,7 +127,7 @@ def _rec_block(p, cfg: LMConfig, x, policy, state=None):
     x = x + y
     x = x + C.swiglu(p["ffn"], C.rmsnorm(p["ln2"], x, cfg.norm_eps), policy,
                      path="ffn")
-    return x, new_state
+    return shard(x, "batch", "seq_res", "embed"), new_state
 
 
 def _hybrid_layout(cfg: LMConfig):
@@ -201,16 +203,19 @@ def _embed(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
     # repeated tokens deterministically on the CPU and the card, where
     # indexing's accumulating scatter varies from run to run on the CPU
     x = F.embedding(tokens, params["embed"]["e"])
-    return (x * math.sqrt(float(cfg.d_model))).to(
+    x = (x * math.sqrt(float(cfg.d_model))).to(
         getattr(torch, cfg.compute_dtype))
+    return shard(x, "batch", "seq_res", "embed")
 
 
 def _unembed(params, cfg: LMConfig, x: torch.Tensor, policy: Policy):
     x = C.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return EG.gemm(x, params["embed"]["e"].t().to(x.dtype), policy,
-                       path="lm_head")
-    return C.linear(params["lm_head"], x, policy, path="lm_head")
+        logits = EG.gemm(x, params["embed"]["e"].t().to(x.dtype), policy,
+                         path="lm_head")
+    else:
+        logits = C.linear(params["lm_head"], x, policy, path="lm_head")
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -231,6 +236,7 @@ def _encode(params, cfg: LMConfig, enc: torch.Tensor, policy: Policy):
         enc = enc + C.swiglu(lp["ffn"], C.rmsnorm(lp["ln2"], enc,
                                                   cfg.norm_eps),
                              policy, path="enc/ffn")
+        enc = shard(enc, "batch", "seq_res", "embed")
     return C.rmsnorm(params["enc_ln"], enc, cfg.norm_eps)
 
 
@@ -282,7 +288,7 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor,
                             C.rmsnorm(lp["ln1"], x, cfg.norm_eps),
                             positions, policy, path="attn")
         y, aux_l = _ffn(lp, cfg, x, policy)
-        x = x + y
+        x = shard(x + y, "batch", "seq_res", "embed")
         if aux_l is not None:
             aux = aux + aux_l
     if cfg.is_moe:

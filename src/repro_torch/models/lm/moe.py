@@ -28,8 +28,9 @@ have no gradient.
 Selection and combine are deterministic: top-k by a stable descending
 sort (the lower expert index first on ties, as ``lax.top_k``), and each
 token's k contributions summed in the reference's sorted order (no
-atomics).  The reference's ``shard`` annotations are left out (no mesh
-until the dist slice).
+atomics).  The reference's ``shard`` annotations stand on the expert
+buffers and the expert hidden (``dist.sharding``: the identity outside a
+binding and on plain tensors).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from repro_torch.core.bfp import Rounding, Scheme
 from repro_torch.core.bfp_dot import (_check_tile, _exact_dot, _sum_in_order,
                                       bfp_matmul_2d, bfp_matmul_2d_prequant)
 from repro_torch.core.prequant import dequantize_prequant, is_prequant
+from repro_torch.dist.sharding import shard
 from repro_torch.models.lm.common import linear_init, normal
 
 __all__ = ["moe_init", "moe_apply"]
@@ -197,10 +199,12 @@ def moe_apply(p, cfg: LMConfig, x: torch.Tensor, policy: Policy = None
     buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=dev)
     buf[slot] = F.embedding(sorted_tok, xt)   # xt[sorted_tok], as _embed
     xe = buf[:-1].reshape(e, cap, d)
+    xe = shard(xe, "experts", None, None)
 
     # ---- expert FFN (SwiGLU) ----------------------------------------------
     h = F.silu(_expert_gemm(xe, p["w1"], policy)) * \
         _expert_gemm(xe, p["w3"], policy)
+    h = shard(h, "experts", None, "ffn")
     ye = _expert_gemm(h, p["w2"], policy)                        # [E, C, D]
 
     # ---- combine: each token's k contributions in sorted order ------------

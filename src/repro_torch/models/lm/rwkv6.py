@@ -30,6 +30,7 @@ import torch
 
 from repro_torch import engine as EG
 from repro_torch.configs.base import LMConfig
+from repro_torch.dist.sharding import shard
 from repro_torch.models.lm.common import (Shape, linear, linear_init, normal,
                                           rmsnorm, rmsnorm_init, scalar)
 
@@ -198,6 +199,7 @@ def channel_mix(p, cfg: LMConfig, x: torch.Tensor, x_prev: torch.Tensor,
     xk = x + mu[0] * (xs - x)
     xr = x + mu[1] * (xs - x)
     k = torch.square(torch.relu(linear(p["wk"], xk, policy)))
+    k = shard(k, "batch", "seq", "ffn")
     return torch.sigmoid(linear(p["wr"], xr, policy)) * \
         linear(p["wv"], k, policy)
 

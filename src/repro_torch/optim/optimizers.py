@@ -15,7 +15,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch import _tree
-from repro_torch._tree import tree_map
+from repro_torch._tree import is_float, tree_map
 
 __all__ = ["adamw_init", "adamw_update", "sgd_init", "sgd_update",
            "clip_by_global_norm", "global_norm",
@@ -29,10 +29,6 @@ class OptState(NamedTuple):
     nu: Any
 
 
-def _is_float(x) -> bool:
-    return isinstance(x, torch.Tensor) and x.is_floating_point()
-
-
 def _device(tree) -> torch.device:
     """The device of the tree's first tensor leaf (the CPU if none)."""
     for leaf in _tree.flatten(tree)[0]:
@@ -43,21 +39,21 @@ def _device(tree) -> torch.device:
 
 def global_norm(tree) -> torch.Tensor:
     leaves = [torch.sum(torch.square(x.float()))
-              for x in _tree.flatten(tree)[0] if _is_float(x)]
+              for x in _tree.flatten(tree)[0] if is_float(x)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale if _is_float(g) else g,
+    return tree_map(lambda g: g * scale if is_float(g) else g,
                     grads), norm
 
 
 def adamw_init(params) -> OptState:
     def zeros(p):
         return tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32)
-                        if _is_float(x) else x, p)
+                        if is_float(x) else x, p)
     return OptState(step=torch.zeros((), dtype=torch.int32,
                                      device=_device(params)),
                     mu=zeros(params), nu=zeros(params))
@@ -70,14 +66,14 @@ def adamw_update(grads, state: OptState, params, lr,
     step = state.step + 1
     t = step.float()
     mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float()
-                  if _is_float(g) else m, state.mu, grads)
+                  if is_float(g) else m, state.mu, grads)
     nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float())
-                  if _is_float(g) else v, state.nu, grads)
+                  if is_float(g) else v, state.nu, grads)
     bc1 = 1 - b1 ** t
     bc2 = 1 - b2 ** t
 
     def upd(p, m, v):
-        if not _is_float(p):
+        if not is_float(p):
             return p
         mhat = m / bc1
         vhat = v / bc2

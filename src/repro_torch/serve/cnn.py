@@ -14,14 +14,28 @@
     (``strict_backend=True`` rejects undeployable configs here);
     engines bound to one plan share one forward (``Plan.jit_forward``),
     or with ``jit=False`` run ``apply`` eagerly so that taps see every
-    served site.
+    served site;
+  * data-parallel batch sharding through ``dist.sharding.axis_rules`` and
+    a ``launch.mesh`` mesh: the stacked batch is annotated
+    ``("batch", None, None, None)`` before the forward, as in ``repro``.
+    Eager torch has no SPMD partitioner, so the engine does what XLA does
+    for ``repro``: where the batch rule resolves to mesh axes of total
+    size D > 1, every rank runs the same engine on the same requests,
+    takes its rows of the bucket (``distribute_tensor(...).to_local()``),
+    runs the forward on them with the weights replicated, and gathers the
+    logits (``DTensor.full_tensor()``), so every rank completes every
+    request.  Inside that split forward EQ2's and EQ4's whole-matrix
+    activation block takes its max over the data group
+    (``dist.sharding.batch_group``).  A dropped rule (D does not divide
+    the bucket) or D = 1 runs the whole batch with no collective.
 
 Bit-exactness contract: a request served through the engine produces
 exactly the logits of a direct ``apply(plan.params, batch, plan)`` on
-the same rows.  Sharded serving (``mesh=``) arrives with the dist slice.
+the same rows, with a mesh or without.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -31,6 +45,7 @@ import torch
 
 from repro_torch import engine as EG
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.dist import sharding as DS
 from repro_torch.engine import PolicyLike
 from repro_torch.engine.plan import Plan
 from repro_torch.models.cnn import head_logits
@@ -40,6 +55,10 @@ from repro_torch.serve.degrade import (DeadlineExceeded, DegradeConfig,
 from repro_torch.serve.slots import SlotTable
 
 __all__ = ["ImageRequest", "CnnServeEngine", "default_buckets"]
+
+#: logical axes of an NHWC image batch — only the batch axis shards
+#: (pure data parallelism; DEFAULT_RULES maps "batch" -> "data")
+_BATCH_AXES = ("batch", None, None, None)
 
 
 @dataclasses.dataclass
@@ -82,8 +101,11 @@ class CnnServeEngine:
     ``jit``, ``max_queue``, ``fallback_policy``, ``degrade``,
     ``float_retry``, ``batching``, ``max_wait``, ``clock``.  ``device`` is
     where the forwards run (default "cuda"); a pre-bound Plan must live
-    there.  ``mesh`` is reserved for sharded serving and raises until the
-    dist slice lands.  ``jit=True`` serves through the plan's shared
+    there.  ``mesh`` (a ``launch.mesh`` mesh) and ``rules`` (default
+    ``dist.sharding.DEFAULT_RULES``): every forward runs under
+    ``axis_rules`` with the batch axis sharded (see the module
+    docstring); a forward that raises on one rank of the data group
+    fails the group on every rank.  ``jit=True`` serves through the plan's shared
     ``Plan.jit_forward`` (taps suppressed, as in ``repro``'s compiled
     forward); ``jit=False`` calls ``apply_fn(plan.params, x, plan)``
     itself, so ``engine.taps`` observe every served site, as ``repro``'s
@@ -94,17 +116,14 @@ class CnnServeEngine:
                  policy: PolicyLike = None, *, slots: int = 8,
                  buckets: Optional[Sequence[int]] = None,
                  prequant: bool = True, strict_backend: bool = False,
-                 mesh=None, jit: bool = True,
-                 max_queue: Optional[int] = None,
+                 mesh=None, rules: Optional[Dict[str, Any]] = None,
+                 jit: bool = True, max_queue: Optional[int] = None,
                  fallback_policy: PolicyLike = None,
                  degrade: Optional[DegradeConfig] = None,
                  float_retry: bool = True,
                  batching: str = "continuous", max_wait: int = 4,
                  clock: Callable[[], float] = time.monotonic,
                  device: DeviceLike = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (sharded CNN serving) is not "
-                                      "ported to repro_torch yet")
         if batching not in ("continuous", "bucket"):
             raise ValueError(f"batching must be 'continuous' or 'bucket', "
                              f"got {batching!r}")
@@ -121,6 +140,9 @@ class CnnServeEngine:
                         else default_buckets(slots))
         if self.buckets[-1] < 1:
             raise ValueError(f"bad buckets {self.buckets}")
+        self.mesh = mesh
+        self.rules = dict(rules) if rules is not None \
+            else dict(DS.DEFAULT_RULES)
         self.jit = jit
         self._fwd = self._make_fwd(self.plan)
         self._shape: Optional[Tuple[int, ...]] = None
@@ -217,6 +239,41 @@ class CnnServeEngine:
                 return b
         return self.buckets[-1]
 
+    def _sharding_ctx(self):
+        return (DS.axis_rules(self.rules, self.mesh)
+                if self.mesh is not None else contextlib.nullcontext())
+
+    def _logits(self, fwd: Callable[..., Any], x: torch.Tensor
+                ) -> torch.Tensor:
+        """Head-0 logits of ``fwd`` over the bucket ``x``.  Under a mesh
+        whose batch rule splits the bucket, this rank's rows run and the
+        logits are gathered from the data group."""
+        if self.mesh is None:
+            return head_logits(fwd(x))
+        with self._sharding_ctx():
+            x = DS.shard(x, *_BATCH_AXES)
+            phys = DS.resolve_spec(self.rules, DS.mesh_axis_sizes(self.mesh),
+                                   tuple(x.shape), _BATCH_AXES)
+            place = DS.placements(self.mesh, phys)
+            dims = [i for i, p in enumerate(place) if p.is_shard()]
+            if all(self.mesh.size(i) == 1 for i in dims):
+                return head_logits(fwd(x))
+            from torch.distributed.tensor import DTensor, distribute_tensor
+
+            groups = [self.mesh.get_group(i) for i in dims]
+            xl = distribute_tensor(x, self.mesh, place,
+                                   src_data_rank=None).to_local()
+            err: Optional[BaseException] = None
+            try:
+                with DS.batch_group(groups):
+                    out = head_logits(fwd(xl)).contiguous()
+            except Exception as e:                # noqa: BLE001
+                err = out = e
+            if DS.any_rank(err is not None, groups, x.device):
+                raise err if err is not None else RuntimeError(
+                    "the forward raised on another rank of the data group")
+            return DTensor.from_local(out, self.mesh, place).full_tensor()
+
     def _float_fwd(self, degraded: bool) -> Callable[..., Any]:
         """Float-reference forward of the serving plan's own (quantized)
         weights — the non-finite-logits retry path, built lazily."""
@@ -276,15 +333,15 @@ class CnnServeEngine:
             x = torch.stack([torch.as_tensor(i) for i in imgs]).to(
                 self.device, torch.float32)
             self.ncalls += 1
-            out = (self._fb_fwd if degraded else self._fwd)(x)
-            logits = head_logits(out).float().cpu().numpy()
+            logits = self._logits(self._fb_fwd if degraded else self._fwd,
+                                  x).float().cpu().numpy()
             if self._float_retry and \
                     not np.all(np.isfinite(logits[:len(reqs)])):
                 # one retry on the float reference of the SAME weights
                 self.stats["float_retries"] += 1
                 self.ncalls += 1
-                out = self._float_fwd(degraded)(x)
-                logits = head_logits(out).float().cpu().numpy()
+                logits = self._logits(self._float_fwd(degraded),
+                                      x).float().cpu().numpy()
         except Exception as e:                    # noqa: BLE001 — slots
             self._fail_group(group, reqs, e)      # must never leak
             return

@@ -38,13 +38,12 @@ import torch.nn.functional as F
 
 from repro_torch import _tree
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch._tree import tree_map
-from repro_torch.data.pipeline import image_batch
+from repro_torch._tree import is_float, tree_map
+from repro_torch.data.pipeline import image_batch, step_generator
 from repro_torch.dist import compress as DC
 from repro_torch.engine.policy_map import PolicyLike
 from repro_torch.grad import value_and_grad
 from repro_torch.grad.nsr import GradNSRRecord, measure_gradient_nsr
-from repro_torch.grad.vjp import _is_float
 from repro_torch.models.cnn import MODELS, head_logits
 from repro_torch.optim import optimizers as opt
 
@@ -115,7 +114,7 @@ def data_batch(cfg: CnnTrainConfig, step: int, templates=None, *,
         _, _, templates = image_batch(
             torch.Generator().manual_seed(1234 + cfg.seed), cfg.num_classes,
             2, hw, ch, device="cpu")
-    gen = torch.Generator().manual_seed((cfg.seed << 32) + step)
+    gen = step_generator(cfg.seed, step)
     x, y, _ = image_batch(gen, cfg.num_classes, cfg.batch, hw, ch,
                           templates, device=device)
     return x, y, templates
@@ -142,7 +141,7 @@ def _worker_grads(cfg: CnnTrainConfig, apply_fn, params, x, y):
     outs = [_value_and_grad(cfg, apply_fn, params, x[i * mb:(i + 1) * mb],
                             y[i * mb:(i + 1) * mb])
             for i in range(cfg.workers)]
-    grads = tree_map(lambda *g: torch.stack(g) if _is_float(g[0]) else g[0],
+    grads = tree_map(lambda *g: torch.stack(g) if is_float(g[0]) else g[0],
                      *[g for _, g in outs])
     return torch.stack([loss for loss, _ in outs]), grads
 
@@ -162,17 +161,17 @@ def _per_worker(transform, grads, residual):
     worker's slice of the stacked trees, restacked: ``repro``'s
     ``jax.vmap(transform)``."""
     workers = next(r.shape[0] for r in _tree.flatten(residual)[0])
-    outs = [transform(tree_map(lambda t: t[i] if _is_float(t) else t,
+    outs = [transform(tree_map(lambda t: t[i] if is_float(t) else t,
                                grads),
                       tree_map(lambda t: t[i], residual))
             for i in range(workers)]
-    return tuple(tree_map(lambda *t: torch.stack(t) if _is_float(t[0])
+    return tuple(tree_map(lambda *t: torch.stack(t) if is_float(t[0])
                           else t[0], *[o[j] for o in outs])
                  for j in (0, 1))
 
 
 def _mean(t):
-    return torch.mean(t, dim=0) if _is_float(t) else t
+    return torch.mean(t, dim=0) if is_float(t) else t
 
 
 def make_cnn_train_step(cfg: CnnTrainConfig, apply_fn=None):

@@ -18,11 +18,10 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch._tree import tree_map
+from repro_torch._tree import is_float, tree_map
 from repro_torch.configs.base import LMConfig
 from repro_torch.engine.policy_map import PolicyLike
 from repro_torch.grad import value_and_grad
-from repro_torch.grad.vjp import _is_float
 from repro_torch.models.lm import model as Mdl
 from repro_torch.optim import optimizers as opt
 
@@ -91,17 +90,17 @@ def make_train_step(
             mb = tokens.shape[0] // grad_accum
             gsum = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device)
-                if _is_float(p) else p, state.params)
+                if is_float(p) else p, state.params)
             lsum = 0.0
             for i in range(grad_accum):
                 rows = slice(i * mb, (i + 1) * mb)
                 (loss, _), g = value_and_grad(
                     lambda p: loss_fn(p, tokens[rows], targets[rows]),
                     state.params)
-                gsum = tree_map(lambda a, b: a + b if _is_float(a) else a,
+                gsum = tree_map(lambda a, b: a + b if is_float(a) else a,
                                 gsum, g)
                 lsum = lsum + loss
-            grads = tree_map(lambda g: g / grad_accum if _is_float(g)
+            grads = tree_map(lambda g: g / grad_accum if is_float(g)
                              else g, gsum)
             loss = lsum / grad_accum
             metrics: Dict[str, torch.Tensor] = {}

@@ -244,8 +244,11 @@ def test_save_and_restore_validation(tmp_path):
     store.save(d, 0, params, format="bfp_packed", policy=POL)
     with pytest.raises(ValueError, match="packed"):
         store.restore(d, params, packed="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        store.restore(d, params, sharding_fn=lambda i: None, device="cpu")
+    # sharding_fn places each plain leaf (tests/test_torch_dist_ranks.py
+    # places them on a mesh)
+    placed, _ = store.restore(d, params, device="cpu",
+                              sharding_fn=lambda i: torch.device("cpu"))
+    _same_tree(placed, store.restore(d, params, device="cpu")[0])
     # an LM tree whose only leaf is the embedding (never a GEMM weight)
     with pytest.raises(ValueError, match="packed zero leaves"):
         store.save(d, 1, {"embed": torch.zeros(4, 2)}, format="bfp_packed",

@@ -828,7 +828,7 @@ def _lenet_train_policy(**kw):
 def _register_plain_backend():
     """Backend "plain": the kernels' plain versions, for dense float
     operands (all a training step gives the engine) and prequantized
-    matmul weights (a served LM's)."""
+    weights (a served LM's matmuls, a served CNN's convs)."""
     def matmul(x, w, p, out_policy=None):
         if isinstance(w, dict):
             kb = w["m"].shape[0] // w["s"].shape[0]
@@ -836,11 +836,16 @@ def _register_plain_backend():
                                                 p.l_w, kb)
         return KM.bfp_matmul_plain(x, w, p.l_i, p.l_w, p.block_k)
 
-    EG.register_backend(
-        "plain", matmul,
-        conv=lambda x, w, p, stride, padding, out_policy=None:
-        KC.bfp_conv2d_plain(x, w, p.l_i, p.l_w, p.block_k, stride,
-                            padding))
+    def conv(x, w, p, stride, padding, out_policy=None):
+        if isinstance(w, dict):
+            kh, kw, c, _ = w["m"].shape
+            kb = kh * kw * c // w["s"].shape[0]
+            return KC.bfp_conv2d_prequant_plain(x, w["m"], w["s"], p.l_i,
+                                                p.l_w, kb, stride, padding)
+        return KC.bfp_conv2d_plain(x, w, p.l_i, p.l_w, p.block_k, stride,
+                                   padding)
+
+    EG.register_backend("plain", matmul, conv=conv)
 
 
 def _far_share(got, want):
@@ -1204,3 +1209,49 @@ def test_cuda_lm_train_step_matches_plain_versions(cuda, arch,
     if cfg.is_moe:
         mu = a.opt_state.mu["layers"]["moe"]
         assert all(float(mu[k].abs().sum()) > 0 for k in ("w1", "w2", "w3"))
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_resnet50_serving_on_a_1x1_mesh(cuda):
+    """``chip_smoke.py``'s ``sharded_resnet50_full`` at reduced width:
+    reduced ResNet-50 served on a 1x1 (data, model) mesh of the card
+    (``CnnServeEngine(mesh=, rules=DEFAULT_RULES)``) gives logits
+    ``torch.equal`` to the unsharded engine's and to the plain versions',
+    with the unsharded run's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as DS
+    from repro_torch.launch.mesh import make_mesh
+
+    _register_plain_backend()
+    spec = MODELS["resnet50"]
+    params = spec.init(torch.Generator().manual_seed(1), reduced=True,
+                       device=cuda)
+    pol = PALLAS_TILED.with_(straight_through=False)
+    images = t(normal((5,) + tuple(spec.input_shape(reduced=True)), seed=4))
+    plan = EG.bind(params, pol, tree="cnn", strict=True, device=cuda)
+    pplan = EG.bind(params, pol.with_(backend="plain"), tree="cnn",
+                    strict=True, device=cuda)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        runs = {}
+        for tag, p, kw in (("free", plan, {}),
+                           ("mesh", plan, dict(mesh=mesh,
+                                               rules=DS.DEFAULT_RULES)),
+                           ("plain", pplan, {})):
+            eng = CnnServeEngine(None, spec.apply, p, slots=4, device=cuda,
+                                 **kw)
+            reqs = [eng.submit(image=images[i]) for i in range(5)]
+            K.reset_launch_counts()
+            eng.run()
+            assert eng.stats["completed"] == 5 and eng.ncalls == 2, tag
+            runs[tag] = (torch.stack([torch.from_numpy(r.logits)
+                                      for r in reqs]), K.launch_counts())
+    finally:
+        dist.destroy_process_group()
+    assert torch.isfinite(runs["mesh"][0]).all()
+    assert torch.equal(runs["mesh"][0], runs["free"][0])
+    assert torch.equal(runs["mesh"][0], runs["plain"][0])
+    assert runs["mesh"][1] == runs["free"][1]
+    assert sum(runs["mesh"][1].values()) > 0
+    assert not any(runs["plain"][1].values())

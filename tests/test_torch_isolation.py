@@ -299,3 +299,33 @@ def test_lm_training_entry_points_need_cuda_unless_asked(monkeypatch,
     assert int(out["state"].step) == 2 and len(out["history"]) == 2
     train_cli.main(["--arch", "rwkv6-3b", "--steps", "1", "--batch", "2",
                     "--seq", "32", "--device", "cpu"])
+
+
+def test_dist_entry_points_need_cuda_unless_asked(monkeypatch):
+    """The sharding slice (``dist.sharding``, ``dist.specs``,
+    ``launch.mesh``) imports nothing of the reference (the scan above);
+    a mesh defaults to the card and raises without it, before any
+    process group starts; asked for, the CPU builds one."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve_cnn
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+
+    names = {f.relative_to(REPO).as_posix() for f in _port_files()}
+    assert {"src/repro_torch/dist/sharding.py",
+            "src/repro_torch/dist/specs.py",
+            "src/repro_torch/launch/mesh.py"} <= names
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: make_mesh((1, 1), ("data", "model")),
+                 lambda: make_production_mesh(),
+                 lambda: make_production_mesh(multi_pod=True)):
+        with pytest.raises(RuntimeError, match="device_type='cpu'"):
+            call()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cnn.main(["--model", "lenet", "--mesh", "1x1"])
+    assert not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    try:
+        assert mesh.device_type == "cpu" and dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()

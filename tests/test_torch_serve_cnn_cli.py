@@ -2,14 +2,17 @@
 
 ``main`` with ``--device cpu`` at smoke scale: one model (the labels it
 prints are those of an engine built by hand from the same seeds) and
-``--tenants``; ``--mesh`` is refused, naming the roadmap item that
-ports sharded serving; an unknown tenant model and a run with neither
-``--model`` nor ``--tenants`` exit with an error.
+``--tenants``; ``--mesh 1x1`` serves the same logits as no mesh, and a
+mesh larger than the process group is refused with the mesh's error; an
+unknown tenant model and a run with neither ``--model`` nor
+``--tenants`` exit with an error.
 """
 import re
 
+import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.policy import PAPER_DEFAULT
 from repro_torch.launch import serve_cnn
@@ -57,12 +60,26 @@ def test_tenants_serve_round_robin(capsys):
 
 def test_mesh_and_bad_arguments_are_refused(capsys):
     with pytest.raises(SystemExit) as e:
-        serve_cnn.main(["--model", "lenet", "--mesh", "1x1",
+        serve_cnn.main(["--model", "lenet", "--mesh", "2x1",
                         "--device", "cpu"])
     assert e.value.code == 2
-    assert "Queue 1 item 8" in capsys.readouterr().err
+    assert "has 2 devices" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="unknown tenant model"):
         serve_cnn.main(["--tenants", "lenet,nope", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve_cnn.main(["--device", "cpu"])
     assert "pass --model" in capsys.readouterr().err
+
+
+def test_mesh_1x1_serves_the_logits_of_no_mesh(tmp_path, capsys):
+    argv = ["--model", "lenet", "--requests", "5", "--slots", "4", "--bfp",
+            "--device", "cpu", "--logits-out"]
+    serve_cnn.main(argv + [str(tmp_path / "plain.npy")])
+    try:
+        serve_cnn.main(argv + [str(tmp_path / "mesh.npy"), "--mesh", "1x1"])
+    finally:
+        dist.destroy_process_group()       # the one-rank group it started
+    assert "mesh=1x1" in capsys.readouterr().out
+    plain = np.load(tmp_path / "plain.npy")
+    assert plain.shape == (5, 10)
+    assert np.array_equal(plain, np.load(tmp_path / "mesh.npy"))

@@ -31,6 +31,7 @@ from repro_torch import engine as EG
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.bfp import Rounding
 from repro_torch.core.policy import PALLAS_TILED, PAPER_DEFAULT
+from repro_torch.dist.sharding import DEFAULT_RULES
 from repro_torch.models.cnn import MODELS, layers
 from repro_torch.models.cnn import vgg
 from repro_torch.serve.cnn import CnnServeEngine, default_buckets
@@ -215,9 +216,11 @@ def test_serve_engine_bucket_barrier_degrade_and_float_retry():
     req = eng.submit(image=img)
     eng.run()
     assert eng.stats["float_retries"] == 1 and np.isfinite(req.logits).all()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        CnnServeEngine(params, _tiny_apply, None, mesh=object(),
-                       device="cpu")
+    # no mesh: DEFAULT_RULES kept for a later binding, or the rules given
+    # (tests/test_torch_dist_engine.py serves on meshes)
+    assert eng.mesh is None and eng.rules == DEFAULT_RULES
+    assert CnnServeEngine(params, _tiny_apply, None, rules={"batch": None},
+                          device="cpu").rules == {"batch": None}
     with pytest.raises(ValueError, match="params=None"):
         CnnServeEngine(params, _tiny_apply, eng.plan, device="cpu")
     # engines bound to one plan share one forward object

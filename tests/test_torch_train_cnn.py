@@ -171,6 +171,23 @@ def test_step_is_deterministic():
     assert torch.equal(x, x2) and torch.equal(y, y2)
 
 
+def test_data_batch_mixes_seed_and_step():
+    """F12: a CPU generator keeps the low 32 bits of its seed, so a seed
+    of ``(seed << 32) + step`` gave every ``CnnTrainConfig.seed`` the same
+    batches.  The pair is mixed by ``SeedSequence``: the same (seed, step)
+    gives the same batch, another seed or step another one."""
+    def batch(seed, step):
+        return TC.data_batch(_cfg(seed=seed), step, device="cpu")[:2]
+
+    x0, y0 = batch(0, 3)
+    xa, ya = batch(0, 3)
+    assert torch.equal(x0, xa) and torch.equal(y0, ya)
+    for seed, step in ((1, 3), (2, 3), (0, 4)):
+        x, y = batch(seed, step)
+        assert not torch.equal(x, x0), (seed, step)
+        assert not torch.equal(y, y0), (seed, step)
+
+
 def test_residuals_nonzero_and_survive_checkpoint(tmp_path):
     cfg = _cfg(policy=EQ4_HARD)
     out = TC.train_cnn(cfg, steps=2, eval_batch=32,
