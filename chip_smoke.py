@@ -296,7 +296,29 @@ raises (and so exits non-zero) when it fails:
    S = 64) under ``axis_rules(DEFAULT_RULES, mesh)``, ``torch.equal`` to
    the unbound calls with ``lm_launches_per_call``'s launches (155 + 155
    a step) both ways and no rule dropped;
-18. a JSON line of per-kernel numbers, then the result line
+18. the dry run and the roofline (``launch.input_specs``,
+   ``launch.dryrun``, ``launch.hillclimb``, ``roofline``).  Full-width
+   TinyLlama-1.1B cells (``build_cell`` on a 1x1 mesh of the card):
+   ``train`` B = 8, S = 256; ``prefill`` B = 4, S = 4,096; ``decode``
+   B = 8 over a 4,096-position cache, with float weights and with
+   hillclimb's BFP-8 weights.  Each cell is traced on fake tensors
+   (``roofline.counter``), run for real on the card from a seeded
+   generator (``input_specs.materialize``) under ``FlopCounterMode``,
+   whose count must equal the trace's, then timed (one warm-up, the
+   median of 5 by CUDA events) and profiled once (device ms against the
+   call's wall); a line ``roofline tinyllama_<cell>`` prints the H100
+   roofline terms, the dominant one, the measured ms, the share
+   ``max(t_compute, t_memory) / measured``, the compute share
+   ``t_compute / measured`` and the profiled call's device busy share.  The cells run
+   the float route (no policy, as in ``repro``), so no kernel launches:
+   the phase checks every counter reads zero.  Then hillclimb cell C
+   (``mistral-nemo-12b``, ``decode_32k``) on the fake 16x16 mesh of this
+   machine's torch: ``run_cell_roofline`` and ``run_cell_compile``
+   (``baseline``), ``measure`` (``no_fsdp+bfp8w``) and ``report.render``
+   over the JSONs written; the baseline's per-device FLOPs must lie
+   within 2x of model FLOPs / 256 (line ``roofline cell_C``, then the
+   table).  The phase prints its seconds;
+19. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
    own zeroed run, and ms / plain_ms / bound_ms summed over that path's
@@ -3234,6 +3256,166 @@ def dist_phase(dev, card, detail, launches, seed, pol, r50, r50_served,
     print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
 
 
+#: phase 18(a)'s cells: full-width TinyLlama-1.1B on a 1x1 mesh of the
+#: card, sized for one card: (label, shape, BFP-8 weights).
+DRYRUN_CELLS = (
+    ("train", ("train_b8_s256", 256, 8, "train"), False),
+    ("prefill", ("prefill_b4_s4096", 4096, 4, "prefill"), False),
+    ("decode", ("decode_b8_t4096", 4096, 8, "decode"), False),
+    ("decode_bfp8w", ("decode_b8_t4096", 4096, 8, "decode"), True))
+#: phase 18(b): hillclimb cell C on the fake 16x16 mesh, two variants.
+DRYRUN_C_VARIANTS = ("baseline", "no_fsdp+bfp8w")
+
+
+def dryrun_cell(dev, card, detail, label, cfg, shape, bfp, mesh, seed):
+    """One phase 18(a) cell: the fake trace's per-device counts, the real
+    run's FLOPs (equal), its median time and its share of the H100
+    roofline."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import hillclimb as HC
+    from repro_torch.launch.input_specs import build_cell, materialize
+    from repro_torch.roofline import analysis as RA
+
+    cell = build_cell(cfg, shape, mesh,
+                      bfp_weights=HC._BFP8 if bfp else None)
+    t0 = time.perf_counter()
+    trace = DR.trace_cell(cell, mesh)
+    trace_s = time.perf_counter() - t0
+    args = materialize(cell, cfg.vocab_size,
+                       torch.Generator(device=dev).manual_seed(seed), dev)
+    with FlopCounterMode(display=False) as fc:
+        cell.fn(*args)
+    real = fc.get_total_flops()
+    check(real == trace.flops, f"dryrun {label}: the real run counts "
+          f"{real} FLOPs, the fake trace {trace.flops}")
+    torch.cuda.synchronize()
+    runs = []
+    for i in range(6):                  # one warm-up, then 5 timed
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cell.fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        if i:
+            runs.append(start.elapsed_time(stop))
+    ms = float(np.median(runs))
+    # one more call under the profiler: its device time against its wall
+    _, fam, wall = profile_step(lambda: cell.fn(*args), 0)
+    devt = sum(fam.values())
+    terms = RA.roofline_terms(trace.cost(), {}, RA.HW(chips=1),
+                              n_links=RA.N_LINKS)
+    t_c, t_m = terms["t_compute"] * 1e3, terms["t_memory"] * 1e3
+    bound = max(t_c, t_m)
+    detail[label] = {"flops": trace.flops, "bytes": trace.bytes_accessed,
+                     "t_compute_ms": t_c, "t_memory_ms": t_m,
+                     "dominant": terms["dominant"], "ms": ms, "runs": runs,
+                     "share": bound / ms, "compute_share": t_c / ms,
+                     "profile": {"wall_ms": wall, "device_ms": devt,
+                                 **fam},
+                     "trace_s": trace_s, "memory": trace.memory()}
+    print(f"roofline {label}: t_compute {t_c:.4f} ms, t_memory {t_m:.4f} "
+          f"ms, dominant {terms['dominant']}, measured {ms:.4f} ms (median "
+          f"of {len(runs)}), share {bound / ms:.4f}, compute share "
+          f"{t_c / ms:.4f}; profiled call: wall {wall:.4f} ms, device "
+          f"{devt:.4f} ms (busy {100 * devt / wall:.1f}%); flops "
+          f"{trace.flops} (real run {real}), unfused bytes "
+          f"{trace.bytes_accessed}, trace {trace_s:.1f} s  [{card}]",
+          flush=True)
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_cell_c(card, detail):
+    """Phase 18(b): hillclimb cell C on the fake 16x16 mesh on this
+    machine's torch: ``baseline`` through ``run_cell_roofline`` and
+    ``run_cell_compile``, ``no_fsdp+bfp8w`` through ``measure``, then
+    ``report.render`` over the JSONs."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import hillclimb as HC
+    from repro_torch.roofline import report as REP
+
+    arch, shape_name, variants = HC.VARIANTS["C"]
+    mesh_name = "single_pod_16x16"
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    try:
+        with DR.fake_mesh(*DR.MESHES[mesh_name]) as mesh:
+            t0 = time.perf_counter()
+            r = DR.run_cell_roofline(arch, shape_name, mesh, mesh_name, out)
+            t1 = time.perf_counter()
+            c = DR.run_cell_compile(arch, shape_name, mesh, mesh_name, out)
+            t2 = time.perf_counter()
+            kw = dict((n, (k, p)) for n, k, p in variants)
+            v = HC.measure(arch, shape_name, mesh, *kw[DRYRUN_C_VARIANTS[1]])
+            t3 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            REP.render(out)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    table = buf.getvalue()
+    flops = r["cost_analysis"]["flops"]
+    per_dev = r["model_flops"] / r["n_devices"]
+    t, tv = r["roofline"], v
+    detail["dryrun_cell_C"] = {
+        "baseline": r, "compile": c, DRYRUN_C_VARIANTS[1]: v,
+        "report": table, "seconds": {"roofline": t1 - t0,
+                                     "compile": t2 - t1, "variant": t3 - t2}}
+    print(f"roofline cell_C {arch} {shape_name} 16x16 (fake): baseline "
+          f"flops/device {flops:.6g} vs model/256 {per_dev:.6g} (ratio "
+          f"{flops / per_dev:.4f}); t_compute {t['t_compute']:.6f} s, "
+          f"t_memory {t['t_memory']:.6f} s, t_coll {t['t_collective']:.6f} "
+          f"s, dominant {t['dominant']}; {DRYRUN_C_VARIANTS[1]}: t_compute "
+          f"{tv['t_compute']:.6f} s, t_memory {tv['t_memory']:.6f} s, "
+          f"t_coll {tv['t_collective']:.6f} s, dominant {tv['dominant']}; "
+          f"full-depth trace: temp {c['memory_analysis']['temp_bytes']} "
+          f"B/device; seconds {t1 - t0:.1f} + {t2 - t1:.1f} + "
+          f"{t3 - t2:.1f}  [{card}]", flush=True)
+    print(table.strip(), flush=True)
+    check(r["n_devices"] == 256 and per_dev / 2 <= flops <= per_dev * 2,
+          f"dryrun cell C: {flops:.6g} FLOPs per device, model FLOPs / 256 "
+          f"{per_dev:.6g}")
+    check(f"| {arch} | {shape_name} |" in table,
+          f"dryrun cell C: report.render printed no row:\n{table}")
+
+
+def dryrun_phase(dev, card, detail, seed):
+    """Phase 18: the dry run and the roofline (see the module
+    docstring)."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.mesh import make_mesh
+
+    t18 = time.perf_counter()
+    print(card_line(), flush=True)      # the card under phase 18's numbers
+    rows = detail["dryrun"] = {}
+    K.reset_launch_counts()
+    cfg = ARCHS["tinyllama-1.1b"]
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        for label, shape, bfp in DRYRUN_CELLS:
+            dryrun_cell(dev, card, rows, f"tinyllama_{label}", cfg,
+                        ShapeConfig(*shape), bfp, mesh, seed)
+    finally:
+        dist.destroy_process_group()
+    counts = K.launch_counts()
+    check(not any(counts.values()), f"phase 18: the float route launched "
+          f"kernels: {counts}")
+    dryrun_cell_c(card, rows)
+    secs = time.perf_counter() - t18
+    rows["seconds"] = secs
+    print(f"phase 18: {secs:.1f} s, no kernel launched", flush=True)
+
+
 def pol_lenet():
     """LeNet's kernel policy: PALLAS_TILED at block 16 (c2's K = 400 and
     fc1's 1568 are multiples), strict round to nearest."""
@@ -4551,7 +4733,10 @@ def main() -> int:
                models["resnet50_full"], served_logits["resnet50_full"],
                full_params)
 
-    # -- 18. results ---------------------------------------------------------
+    # -- 18. the dry run and the roofline ------------------------------------
+    dryrun_phase(dev, card, detail, args.seed)
+
+    # -- 19. results ---------------------------------------------------------
     kernels = []
     for name in SOURCES:
         path = next(p for p in launches if launches[p][name] > 0)

@@ -44,9 +44,11 @@ def lm_loss(params, cfg: LMConfig, tokens, targets, policy=None,
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     # the gather has the one-hot contraction's value and gradient for
-    # finite logits
-    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = torch.mean(logz - ll)
+    # finite logits; its [B, S, 1] result is reduced as it is (DTensor
+    # masks a vocab-sharded gather's partial result by the gather's own
+    # shape, which a select of the last dim would break)
+    ll = torch.gather(logits, -1, targets.long()[..., None])
+    nll = torch.mean(logz[..., None] - ll)
     zloss = torch.mean(torch.square(logz))
     loss = nll + aux_weight * aux + z_weight * zloss
     return loss, {"nll": nll, "aux": aux, "zloss": zloss}

@@ -1255,3 +1255,37 @@ def test_cuda_sharded_resnet50_serving_on_a_1x1_mesh(cuda):
     assert runs["mesh"][1] == runs["free"][1]
     assert sum(runs["mesh"][1].values()) > 0
     assert not any(runs["plain"][1].values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_cuda_dryrun_counts_equal_the_real_run(cuda, kind):
+    """Phase 18(a) at a 2-layer cut of TinyLlama on the 1x1 card mesh:
+    the fake trace's per-device FLOPs equal ``FlopCounterMode``'s count
+    of the same cell run for real on the card, and no kernel launches
+    (the cells run the float route)."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig, reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.input_specs import build_cell, materialize
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = reduced(ARCHS["tinyllama-1.1b"], n_layers=2, d_model=256,
+                  d_ff=512, vocab=1024)
+    shape = ShapeConfig(kind, 512 if kind == "decode" else 2048, 2, kind)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        cell = build_cell(cfg, shape, mesh)
+        trace = DR.trace_cell(cell, mesh)
+    finally:
+        dist.destroy_process_group()
+    args = materialize(cell, cfg.vocab_size,
+                       torch.Generator(device=cuda).manual_seed(0), cuda)
+    K.reset_launch_counts()
+    with FlopCounterMode(display=False) as fc:
+        cell.fn(*args)
+    assert fc.get_total_flops() == trace.flops > 0
+    assert not any(K.launch_counts().values())
