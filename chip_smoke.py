@@ -261,6 +261,19 @@ raises (and so exits non-zero) when it fails:
    factor, 2 of its 16 layers, ``PALLAS_TILED`` with straight-through
    (the experts' estimator, F9), B = 4, S = 128: one step ``torch.equal``
    to the plain versions, the experts' gradients non-zero, 9 launches.
+   ``train_rwkv6_width`` (RWKV6-3B, 20 of its 32 layers),
+   ``train_seamless_full`` (seamless-m4t-medium at its published
+   configuration) and ``train_griffin_width`` (RecurrentGemma-9B, one
+   (rec, rec, attn) period: 3 of its 38 layers), at published width,
+   ``PALLAS_TILED`` without straight-through, B = 4, S = 256: the depths
+   are what one card holds with AdamW (``LM_TRAIN_WIDTH``).  One step
+   ``torch.equal`` to the plain versions (the kernels' new state waits on
+   the host while the plain-version step runs), its launches equal to
+   ``lm_train_launches`` (read from the model code: every linear site's
+   forward, #dx and #dw; seamless' head runs the tile kernel, N % 4 = 2,
+   its #dx at block 6) and printed by core; then the median of 3 timed
+   steps, tokens/s, one profiled step by kernel family beside the bound
+   of its kernel GEMMs, init seconds and peak memory.
    ``train_families_smoke``: each of the ten architectures at
    ``reduced()`` (the hybrid at 3 layers: one period, so its attention
    runs) at ``PALLAS_TILED`` block 32 without straight-through,
@@ -317,7 +330,14 @@ raises (and so exits non-zero) when it fails:
    (``baseline``), ``measure`` (``no_fsdp+bfp8w``) and ``report.render``
    over the JSONs written; the baseline's per-device FLOPs must lie
    within 2x of model FLOPs / 256 (line ``roofline cell_C``, then the
-   table).  The phase prints its seconds;
+   table).  Then, on the same fake mesh, the cells that trace on meshes
+   of many devices through ``roofline.partition``'s MoE, RG-LRU, head and
+   WKV rules: hillclimb cell B (``olmoe-1b-7b``, ``prefill_32k``) in its
+   three variants through ``measure``, the baseline's per-device FLOPs
+   within 0.5x-4x of model FLOPs / 256 (lines ``roofline cell_B_<variant>``),
+   and ``run_cell_roofline`` of ``recurrentgemma-9b``, ``minicpm-2b`` and
+   ``rwkv6-3b`` at ``train_4k`` (line ``roofline <arch> train_4k``); no
+   counter moves.  The phase prints its seconds;
 19. a JSON line of per-kernel numbers, then the result line
    ``{"ok": true, "device": {...}}``.  Each kernel's row is read from the
    first path that launches it (``path``): its launches in that path's
@@ -2518,6 +2538,22 @@ LM_TRAIN_FAMILIES = (("tinyllama-1.1b", 2), ("mistral-nemo-12b", 2),
 LM_TRAIN_LOOP = ("train_loop_100m", 30, 8, 256)
 #: full-width steps timed one by one (CUDA events) for the median
 LM_TRAIN_TIMED = 5
+#: the recurrent families and the encoder-decoder at published width,
+#: B * S = 1,024 tokens (S a multiple of RWKV6's WKV chunk, 32): (label,
+#: arch, layers or None for the published depth, batch, sequence).  A
+#: step holds the state, the gradients and the new state (~32.4 bytes a
+#: parameter: RWKV6 at 8 layers peaked at 31.31 GB,
+#: ``tools/probe_train_width.py``), so
+#: the depths are what one 80 GB card holds: RWKV6 20 of its 32 layers
+#: (2.0 B parameters; 32 ran out of memory at 77.4 GB), RecurrentGemma
+#: one (rec, rec, attn) period, 3 of its 38 layers (1.7 B with its
+#: 1.05 B tied embedding; 6 layers would take ~77 GB); seamless whole
+LM_TRAIN_WIDTH = (("train_rwkv6_width", "rwkv6-3b", 20, 4, 256),
+                  ("train_seamless_full", "seamless-m4t-medium", None, 4,
+                   256),
+                  ("train_griffin_width", "recurrentgemma-9b", 3, 4, 256))
+#: their steps timed one by one (CUDA events) for the median
+LM_TRAIN_WIDTH_TIMED = 3
 #: the training CLI (``repro_torch.launch.train``) as subprocesses on the
 #: card; "{tmp}" becomes a temporary checkpoint directory
 LM_TRAIN_CLI_RUNS = (
@@ -2527,18 +2563,86 @@ LM_TRAIN_CLI_RUNS = (
      "--batch", "4", "--seq", "64", "--ckpt-dir", "{tmp}"))
 
 
-def lm_train_launches(cfg, straight_through: bool):
-    """{counter: launches} of one ``make_train_step`` step of a dense or
-    MoE LM at PALLAS_TILED (block 128, float weights), read from the
-    code: every linear site (7 an attention block, 4 with MoE, whose
-    experts run the emulated datapath; and ``lm_head``) runs the patch
-    format pass and the mma core forward, and without straight-through
-    its #dx and #dw the same (``fit_grad_policy`` keeps block 128: every
-    contraction, N of each linear and M = B*S, is a multiple of it);
-    with it the backward is float."""
-    sites = cfg.n_layers * (4 if cfg.is_moe else 7) + 1
-    n = sites * (1 if straight_through else 3)
-    return {"bfp_matmul": n, "bfp_matmul_pformat": n}
+def lm_train_sites(cfg, batch: int, seq: int):
+    """(K, N, M) of every linear site of one LM forward on the kernels,
+    read from the model code (``models.lm``): an attention block's wq /
+    wk / wv / wo and its SwiGLU w1 / w3 / w2 (the MoE experts run the
+    emulated datapath, the router in float: neither is a site); an RWKV6
+    layer's time mix (wr, wk, wv, wg, the decay LoRA's wA [d, 64] and wB
+    [64, d], wo) and channel mix (wk, wv, wr); a Griffin recurrent block's
+    in_x, in_g, wr, wi, out and SwiGLU; an encoder-decoder's encoder
+    layers over the ``enc_seq_stub`` frames of its zero stub, and each
+    decoder layer's cross-attention, whose wk / wv read the encoder
+    output; and ``lm_head`` (a tied head multiplies the float
+    ``embed.T``).  M is the rows the site multiplies: ``batch * seq``, or
+    the encoder's ``batch * enc_seq_stub``."""
+    from repro_torch.models.lm.model import _hybrid_layout
+
+    d, f, dh = cfg.d_model, cfg.d_ff, cfg.dh
+    q, kv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    tokens = batch * seq
+
+    def attn(m, m_kv=None):
+        m_kv = m_kv or m
+        return [(d, q, m), (d, kv, m_kv), (d, kv, m_kv), (q, d, m)]
+
+    def ffn(m):
+        return [(d, f, m), (d, f, m), (f, d, m)]
+
+    if cfg.family == "ssm":
+        layer = [(d, d, tokens)] * 4 + [(d, 64, tokens), (64, d, tokens),
+                                        (d, d, tokens), (d, f, tokens),
+                                        (f, d, tokens), (d, d, tokens)]
+        sites = layer * cfg.n_layers
+    elif cfg.block_pattern:
+        lw = cfg.lru_width
+        block = {"rec": [(d, lw, tokens), (d, lw, tokens), (lw, lw, tokens),
+                         (lw, lw, tokens), (lw, d, tokens)] + ffn(tokens),
+                 "attn": attn(tokens) + ffn(tokens)}
+        n_periods, rem = _hybrid_layout(cfg)
+        sites = [site for kind in cfg.block_pattern * n_periods + rem
+                 for site in block[kind]]
+    elif cfg.is_encdec:
+        m_enc = batch * cfg.enc_seq_stub
+        sites = (attn(m_enc) + ffn(m_enc)) * cfg.encoder_layers + (
+            attn(tokens) + [(d, q, tokens), (d, kv, m_enc), (d, kv, m_enc),
+                            (q, d, tokens)] + ffn(tokens)) * cfg.n_layers
+    else:
+        sites = (attn(tokens) + ([] if cfg.is_moe else ffn(tokens))) \
+            * cfg.n_layers
+    return sites + [(d, cfg.vocab_size, tokens)]
+
+
+def lm_train_launches(cfg, straight_through: bool, batch: int, seq: int,
+                      pol=None):
+    """{counter: launches} of one ``make_train_step`` step at ``pol``
+    (PALLAS_TILED by default, float weights), read from the code: each
+    site of :func:`lm_train_sites` runs its forward GEMM and, without
+    straight-through, its #dx (contracting N at ``fit_grad_policy``'s
+    block) and #dw (contracting M at its block) on the kernels; with it
+    the backward is float.  A GEMM runs the mma core after a patch format
+    pass (a ``bfp_matmul`` and a ``bfp_matmul_pformat`` launch) where
+    ``kernels.bfp_matmul.matmul_core`` says so, else the tile kernel (a
+    ``bfp_matmul`` launch): N % 4 != 0 (seamless' head: 256,206) or a
+    fitted block that is no power of two (its #dx at block 6)."""
+    from repro_torch.core.policy import PALLAS_TILED
+    from repro_torch.grad.paths import fit_grad_policy
+    from repro_torch.kernels.bfp_matmul import matmul_core
+
+    pol = pol or PALLAS_TILED
+    out = {"bfp_matmul": 0, "bfp_matmul_pformat": 0}
+
+    def gemm(k, n, bk):
+        out["bfp_matmul"] += 1
+        if matmul_core(False, bk, k, n, pol.l_i, pol.l_w) == "mma":
+            out["bfp_matmul_pformat"] += 1
+
+    for k, n, m in lm_train_sites(cfg, batch, seq):
+        gemm(k, n, pol.block_k or k)
+        if not straight_through:
+            gemm(n, k, fit_grad_policy(pol, n).block_k)
+            gemm(m, n, fit_grad_policy(pol, m).block_k)
+    return {k: v for k, v in out.items() if v}
 
 
 def same_step(a, ma, b, mb) -> bool:
@@ -2587,7 +2691,7 @@ def lm_train_full(dev, card, seed, detail, launches):
     sync = torch.cuda.synchronize
     pol = PALLAS_TILED.with_(straight_through=False)
     sched = opt.cosine_schedule(3e-4, 20, 100)
-    want = lm_train_launches(cfg, straight_through=False)
+    want = lm_train_launches(cfg, False, b, s)
     lm_path_header(label, arch, cfg, None)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2694,7 +2798,7 @@ def lm_train_olmoe(dev, card, seed, detail, launches):
     cfg = dataclasses.replace(ARCHS[arch], n_layers=layers)
     row = detail[label] = {}
     pol = PALLAS_TILED           # straight-through: the experts' STE (F9)
-    want = lm_train_launches(cfg, straight_through=True)
+    want = lm_train_launches(cfg, True, b, s)
     print(f"path {label}: {arch} at published width (d_model {cfg.d_model},"
           f" {cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
@@ -2737,6 +2841,144 @@ def lm_train_olmoe(dev, card, seed, detail, launches):
           f"B = {b}, S = {s}); peak memory {row['peak_gb']:.2f} GB "
           f"allocated  [{card}]", flush=True)
     del state, new, m, step
+
+
+def to_host(tree):
+    """``tree``'s tensors copied to the host, leaf by leaf."""
+    from repro_torch import _tree
+    return _tree.tree_map(lambda t: t.cpu(), tree)
+
+
+def same_as_host(host, tree) -> bool:
+    """:func:`same_tree` of a host copy and a device tree, one leaf on
+    the device at a time."""
+    la, lb = tree_leaves(host), tree_leaves(tree)
+    return len(la) == len(lb) and all(
+        same_bits(u.to(v.device), v) for u, v in zip(la, lb))
+
+
+def lm_train_width(dev, card, seed, detail, launches):
+    """``train_rwkv6_width``, ``train_seamless_full`` and
+    ``train_griffin_width`` (see the module docstring, phase 16)."""
+    import dataclasses
+    import statistics
+
+    from repro_torch import engine as EG
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.policy import PALLAS_TILED
+    from repro_torch.data.pipeline import LMBatchSpec, lm_batch
+    from repro_torch.models.lm import model as LM
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.train import step as TS
+
+    pol = PALLAS_TILED.with_(straight_through=False)
+    sched = opt.cosine_schedule(3e-4, 20, 100)
+    sync = torch.cuda.synchronize
+    for label, arch, layers, b, s in LM_TRAIN_WIDTH:
+        cfg = ARCHS[arch] if layers is None else dataclasses.replace(
+            ARCHS[arch], n_layers=layers)
+        row = detail[label] = {"layers": cfg.n_layers,
+                               "published_layers": ARCHS[arch].n_layers}
+        want = lm_train_launches(cfg, False, b, s)
+        depth = ("its published depth" if layers is None else
+                 f"{layers} of its {ARCHS[arch].n_layers} layers (what one "
+                 f"card holds with AdamW)")
+        print(f"path {label}: {arch} at published width (d_model "
+              f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+              f"{', encoder ' + str(cfg.encoder_layers) + ' layers' if cfg.is_encdec else ''}),"
+              f" {cfg.n_layers} layers: {depth}; B = {b}, S = {s}, "
+              f"PALLAS_TILED without straight-through", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = TS.init_state(cfg, torch.Generator(device=dev).manual_seed(
+            seed), device=dev)
+        sync()
+        row["init_s"] = time.perf_counter() - t0
+        row["params"] = LM.param_count(state.params)
+        spec = LMBatchSpec(vocab_size=cfg.vocab_size, seq_len=s,
+                           global_batch=b, seed=seed)
+        step = TS.make_train_step(cfg, sched, policy=pol)
+        pstep = TS.make_train_step(cfg, sched,
+                                   policy=pol.with_(backend="plain"))
+        batch = lm_batch(spec, 0, device=dev)
+        new, m, counts, wall = step_counts(step, state, batch)
+        loss = float(m["loss"])
+        check(np.isfinite(loss) and np.isfinite(float(m["grad_norm"])),
+              f"{label}: loss {loss}")
+        check(nonzero(counts) == want,
+              f"{label}: launches {nonzero(counts)} != {want}")
+        launches[label] = counts
+        # the kernels' new state waits on the host while the plain-version
+        # step runs: the card holds one step at a time
+        t0 = time.perf_counter()
+        host, hm = to_host(new), to_host(m)
+        del new, m
+        off_s = time.perf_counter() - t0
+        plain, pm, pcounts, pwall = step_counts(pstep, state, batch)
+        check(not any(pcounts.values()),
+              f"{label}: the plain-version step launched a kernel")
+        if not (same_as_host(host, plain) and sorted(hm) == sorted(pm)
+                and all(same_bits(hm[k], pm[k].cpu()) for k in hm)):
+            fail(f"{label}: the step on the kernels != the plain-version "
+                 f"step (params, mu, nu, step, metrics)")
+        del plain, pm, host, hm
+        row.update(loss=loss, ms=wall, plain_ms=pwall, offload_s=off_s,
+                   launches=nonzero(counts), by_core=by_core(counts))
+        print(f"path {label} step 1: loss {loss:.6f}, {wall:.1f} ms "
+              f"(plain versions {pwall:.1f} ms); params, mu, nu, step and "
+              f"metrics torch.equal to the plain-version step; launches "
+              f"{nonzero(counts)} as lm_train_launches predicts; "
+              f"bfp_matmul by core {by_core(counts)}  [{card}]", flush=True)
+        ms = []
+        for i in range(LM_TRAIN_WIDTH_TIMED):
+            batch = lm_batch(spec, 1 + i, device=dev)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, batch)
+            stop.record()
+            sync()
+            ms.append(start.elapsed_time(stop))
+        step_ms = statistics.median(ms)
+        check(np.isfinite(float(m["loss"]))
+              and int(state.step) == LM_TRAIN_WIDTH_TIMED,
+              f"{label}: after {LM_TRAIN_WIDTH_TIMED} steps loss "
+              f"{float(m['loss'])}, step {int(state.step)}")
+        cost = [0, 0]                   # the tapped step's kernel GEMMs
+
+        def tap(ev):
+            c = gemm_cost(ev)
+            cost[0], cost[1] = cost[0] + c[0], cost[1] + c[1]
+
+        with EG.taps(tap):
+            step(state, batch)
+        bms, by, nbytes, ops = bound_of(*cost)
+        per_mma = want.get("bfp_matmul_pformat", 0)
+        n_mma, fam, pwall = profile_step(lambda: step(state, batch),
+                                         per_mma)
+        devt = sum(fam.values())
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        tok_s = b * s / (step_ms / 1e3)
+        row.update(step_ms_median=step_ms, step_ms_all=ms,
+                   tokens_per_s=tok_s, bound_ms=bms, bound_by=by,
+                   bound_bytes=nbytes, bound_ops=ops,
+                   profile={"wall_ms": pwall, "device_ms": devt,
+                            "mma_events": n_mma, **fam})
+        print(f"time {label}: median step {step_ms:.2f} ms (CUDA events, "
+              f"{LM_TRAIN_WIDTH_TIMED} steps, B = {b}, S = {s}), {tok_s:.1f}"
+              f" tokens/s; init {row['init_s']:.2f} s ("
+              f"{row['params'] / 1e9:.4f} B params); new state to the host "
+              f"{off_s:.1f} s; peak memory {row['peak_gb']:.2f} GB "
+              f"allocated  [{card}]", flush=True)
+        print(f"profile {label} step: wall {pwall:.2f} ms, device "
+              f"{devt:.2f} ms (busy {100 * devt / pwall:.1f}% of the "
+              f"profiled wall; {n_mma} of {per_mma} mma-core launches "
+              f"captured): {json.dumps({k: round(v, 3) for k, v in fam.items()})};"
+              f" kernel GEMMs' bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} "
+              f"GB, {ops / 1e12:.3f} TOP)  [{card}]", flush=True)
+        del state, m, step, pstep, batch
 
 
 def lm_train_families(dev, card, seed, detail, launches):
@@ -2854,7 +3096,7 @@ def lm_train_loop(dev, card, seed, detail, launches):
                   d_ff=2048, vocab=8192)
     row = detail[label] = {}
     pol = PALLAS_TILED.with_(straight_through=False)
-    want = lm_train_launches(cfg, straight_through=False)
+    want = lm_train_launches(cfg, False, b, s)
     state = TS.init_state(cfg, torch.Generator(device=dev).manual_seed(seed),
                           device=dev)
     step = TS.make_train_step(cfg, opt.cosine_schedule(3e-3, 5, steps),
@@ -2936,8 +3178,8 @@ def lm_train_phase(dev, card, detail, launches, seed):
     print(card_line(), flush=True)      # the card under phase 16's numbers
     print(f"phase 16: {torch.cuda.memory_allocated() / 1e9:.2f} GB held by "
           f"earlier phases", flush=True)
-    for path in (lm_train_full, lm_train_olmoe, lm_train_families,
-                 lm_train_loop):
+    for path in (lm_train_full, lm_train_olmoe, lm_train_width,
+                 lm_train_families, lm_train_loop):
         t0 = time.perf_counter()
         path(dev, card, seed, detail, launches)
         gc.collect()            # the path's tensors in reference cycles
@@ -3385,6 +3627,75 @@ def dryrun_cell_c(card, detail):
           f"dryrun cell C: report.render printed no row:\n{table}")
 
 
+#: phase 18(c): cells that trace on meshes of many devices through
+#: ``roofline.partition``'s rules, one roofline cell each of the RG-LRU
+#: scan, a head count the model
+#: axis does not divide and the WKV core, in training (hillclimb cell
+#: B's MoE dispatch runs before them)
+DRYRUN_MANY = (("recurrentgemma-9b", "train_4k"), ("minicpm-2b", "train_4k"),
+               ("rwkv6-3b", "train_4k"))
+
+
+def dryrun_many(card, detail):
+    """Phase 18(c): hillclimb cell B's three variants through ``measure``
+    and the :data:`DRYRUN_MANY` cells through ``run_cell_roofline``, on
+    the fake 16x16 mesh of this machine's torch; the baseline's
+    per-device FLOPs must lie within 0.5x-4x of model FLOPs / 256."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import hillclimb as HC
+
+    mesh_name = "single_pod_16x16"
+    arch, shape_name, variants = HC.VARIANTS["B"]
+    per_dev = DR._model_flops(ARCHS[arch], SHAPES[shape_name]) / 256
+    rows = detail["dryrun_many"] = {}
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    try:
+        with DR.fake_mesh(*DR.MESHES[mesh_name]) as mesh:
+            for name, kw, patch in variants:
+                t0 = time.perf_counter()
+                t = HC.measure(arch, shape_name, mesh, kw, patch)
+                secs = time.perf_counter() - t0
+                ratio = t["hlo_flops"] / per_dev
+                rows[f"cell_B/{name}"] = dict(t, ratio=ratio, seconds=secs)
+                print(f"roofline cell_B_{name} {arch} {shape_name} 16x16 "
+                      f"(fake): flops/device {t['hlo_flops']:.6g} vs "
+                      f"model/256 {per_dev:.6g} (ratio {ratio:.4f}); "
+                      f"t_compute {t['t_compute']:.6f} s, t_memory "
+                      f"{t['t_memory']:.6f} s, t_coll "
+                      f"{t['t_collective']:.6f} s, dominant "
+                      f"{t['dominant']}; wire bytes "
+                      f"{t['collective_wire_bytes']:.6g}; {secs:.1f} s  "
+                      f"[{card}]", flush=True)
+                if name == "baseline":
+                    check(0.5 <= ratio <= 4, f"dryrun cell B: {ratio:.4f}x "
+                          f"model FLOPs / 256 per device")
+            for arch_c, shape_c in DRYRUN_MANY:
+                t0 = time.perf_counter()
+                r = DR.run_cell_roofline(arch_c, shape_c, mesh, mesh_name,
+                                         out)
+                secs = time.perf_counter() - t0
+                t = r["roofline"]
+                ratio = r["cost_analysis"]["flops"] / (r["model_flops"]
+                                                       / r["n_devices"])
+                rows[f"{arch_c}/{shape_c}"] = dict(r, seconds=secs)
+                print(f"roofline {arch_c} {shape_c} 16x16 (fake): "
+                      f"{r['layer_units']} layer units from 1 and 2; "
+                      f"flops/device {r['cost_analysis']['flops']:.6g} "
+                      f"({ratio:.4f}x model/256), bytes "
+                      f"{r['cost_analysis']['bytes_accessed']:.6g}; "
+                      f"t_compute {t['t_compute']:.6f} s, t_memory "
+                      f"{t['t_memory']:.6f} s, t_coll "
+                      f"{t['t_collective']:.6f} s, dominant "
+                      f"{t['dominant']}; {secs:.1f} s  [{card}]",
+                      flush=True)
+                check(r["status"] == "ok" and t["hlo_flops"] > 0,
+                      f"dryrun {arch_c} {shape_c}: {r['status']}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def dryrun_phase(dev, card, detail, seed):
     """Phase 18: the dry run and the roofline (see the module
     docstring)."""
@@ -3411,6 +3722,10 @@ def dryrun_phase(dev, card, detail, seed):
     check(not any(counts.values()), f"phase 18: the float route launched "
           f"kernels: {counts}")
     dryrun_cell_c(card, rows)
+    dryrun_many(card, rows)
+    counts = K.launch_counts()
+    check(not any(counts.values()), f"phase 18: the traces launched "
+          f"kernels: {counts}")
     secs = time.perf_counter() - t18
     rows["seconds"] = secs
     print(f"phase 18: {secs:.1f} s, no kernel launched", flush=True)

@@ -145,7 +145,8 @@ def select_backend(policy: BFPPolicy, w, *, strict: bool = False,
 def _float_matmul(x2d, w, policy=None, noise=None):
     if is_prequant(w):
         w = dequantize_prequant(w, x2d.dtype)
-    return x2d @ w
+    dt = torch.promote_types(x2d.dtype, w.dtype)    # as jnp's @ promotes
+    return x2d.to(dt) @ w.to(dt)
 
 
 def _emulated_matmul(x2d, w, policy, noise=None):

@@ -217,6 +217,10 @@ def resolve_dot_impl(dot_impl: str, *, l_i: int, l_w: int, bk: int,
     return dot_impl
 
 
+#: Most partials :func:`accumulate_plain` forms at once ([tiles, B, N]).
+PART_ELEMS = 1 << 27
+
+
 def _tile_dots(mx: torch.Tensor, mw: torch.Tensor, l_i: int, l_w: int,
                bk: int) -> torch.Tensor:
     """[n_k, B, bk] @ [n_k, bk, N] integer mantissas -> exact partials,
@@ -233,11 +237,17 @@ def accumulate_plain(mx: torch.Tensor, sx: torch.Tensor, mw: torch.Tensor,
                      bk: int) -> torch.Tensor:
     """The shared plain datapath after block formatting: mantissas mx
     [n_k, B, bk] and mw [n_k, bk, N], steps sx [n_k, B, 1] and sw
-    [n_k, 1, N] -> f32 [B, N], tiles accumulated in order."""
-    part = _tile_dots(mx, mw, l_i, l_w, bk)               # [n_k, B, N]
-    out = torch.zeros(part.shape[1:], dtype=torch.float32, device=mx.device)
-    for t in range(part.shape[0]):
-        out = out + part[t] * (sx[t] * sw[t])
+    [n_k, 1, N] -> f32 [B, N], tiles accumulated in order.  The tiles'
+    partials are formed :data:`PART_ELEMS` elements at a time (a long
+    contraction at a small block has more tiles than a card holds
+    partials)."""
+    n_k, b, n = mx.shape[0], mx.shape[1], mw.shape[-1]
+    step = max(1, PART_ELEMS // max(1, b * n))
+    out = torch.zeros((b, n), dtype=torch.float32, device=mx.device)
+    for t0 in range(0, n_k, step):
+        part = _tile_dots(mx[t0:t0 + step], mw[t0:t0 + step], l_i, l_w, bk)
+        for t in range(part.shape[0]):
+            out = out + part[t] * (sx[t0 + t] * sw[t0 + t])
     return out
 
 

@@ -119,11 +119,10 @@ def associative_scan(fn: Callable[[Elems, Elems], Elems], elems: Elems,
             for e, r in zip(elems, even)]
     out = []
     for ev, od in zip(even, odd):          # interleave: ev0 od0 ev1 od1 ..
-        t = torch.empty((*ev.shape[:dim], n, *ev.shape[dim + 1:]),
-                        dtype=ev.dtype, device=ev.device)
-        sl(t, 0, None, 2).copy_(ev)
-        sl(t, 1, None, 2).copy_(od)
-        out.append(t)
+        m = od.shape[dim]                  # pairs; an odd n ends on an ev
+        t = torch.stack([sl(ev, 0, m), od], dim=dim + 1).reshape(
+            *ev.shape[:dim], 2 * m, *ev.shape[dim + 1:])
+        out.append(torch.cat([t, sl(ev, m)], dim=dim) if n % 2 else t)
     return out
 
 

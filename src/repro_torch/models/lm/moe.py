@@ -28,9 +28,13 @@ have no gradient.
 Selection and combine are deterministic: top-k by a stable descending
 sort (the lower expert index first on ties, as ``lax.top_k``), and each
 token's k contributions summed in the reference's sorted order (no
-atomics).  The reference's ``shard`` annotations stand on the expert
-buffers and the expert hidden (``dist.sharding``: the identity outside a
-binding and on plain tensors).
+atomics).  The dispatch's index arithmetic (``_route``) and the gather,
+experts and combine it steers (``_experts``) are separate functions, so
+that ``roofline.partition`` can split the second over a mesh and run the
+first, global over the tokens, on every device.  The reference's
+``shard`` annotations stand on the expert buffers and the expert hidden
+(``dist.sharding``: the identity outside a binding and on plain
+tensors).
 """
 from __future__ import annotations
 
@@ -157,6 +161,68 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], ids[:, :k]
 
 
+def _route(expert_ids: torch.Tensor, gate_vals: torch.Tensor, e: int,
+           cap: int) -> Tuple[torch.Tensor, ...]:
+    """The sort-based dispatch's index arithmetic, global over the T
+    tokens: (sorted_tok, sorted_gate, keep, slot, by_token), each [T*K]
+    but ``by_token`` [T, K]: the (token, k) slots sorted by expert id
+    (stable), their gates, whether each fits its expert's capacity
+    ``cap``, its row in the [E*C + 1] expert buffer (E*C: the drop
+    bucket) and each token's k positions in that sorted order."""
+    t, k = expert_ids.shape
+    dev = expert_ids.device
+    flat_expert = expert_ids.reshape(-1)                          # [T*K]
+    flat_token = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_e = flat_expert[order]
+    sorted_tok = flat_token[order]
+    sorted_gate = gate_vals.reshape(-1)[order]
+    seg_start = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
+    pos_in_e = torch.arange(t * k, device=dev) - seg_start[sorted_e]
+    keep = pos_in_e < cap
+    slot = torch.where(keep, sorted_e * cap + pos_in_e,
+                       torch.full_like(pos_in_e, e * cap))   # drop bucket
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(t * k, device=dev)
+    by_token = torch.sort(rank.reshape(t, k), dim=1).values      # [T, K]
+    return sorted_tok, sorted_gate, keep, slot, by_token
+
+
+def _experts(p, x: torch.Tensor, route, e: int, cap: int, policy
+             ) -> torch.Tensor:
+    """Gather the tokens of x [B, S, D] into the expert buffers by
+    ``route`` (:func:`_route`), run the SwiGLU experts, and combine each
+    token's k contributions in sorted order -> [B, S, D]."""
+    sorted_tok, sorted_gate, keep, slot, by_token = route
+    b, s, d = x.shape
+    t, k = b * s, by_token.shape[1]
+    dev = x.device
+    xt = x.reshape(t, d)
+
+    # gather tokens into expert buffers [E*C+1, D] (last row = drop bucket)
+    buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=dev)
+    buf[slot] = F.embedding(sorted_tok, xt)   # xt[sorted_tok], as _embed
+    xe = buf[:-1].reshape(e, cap, d)
+    xe = shard(xe, "experts", None, None)
+
+    # ---- expert FFN (SwiGLU) ----------------------------------------------
+    h = F.silu(_expert_gemm(xe, p["w1"], policy)) * \
+        _expert_gemm(xe, p["w3"], policy)
+    h = shard(h, "experts", None, "ffn")
+    ye = _expert_gemm(h, p["w2"], policy)                        # [E, C, D]
+
+    # ---- combine: each token's k contributions in sorted order ------------
+    yflat = ye.reshape(e * cap, d)
+    contrib = torch.where(keep[:, None],
+                          yflat[torch.clamp(slot, max=e * cap - 1)],
+                          torch.zeros((), dtype=yflat.dtype, device=dev)) \
+        * sorted_gate[:, None]
+    out = torch.zeros((t, d), dtype=x.dtype, device=dev)
+    for j in range(k):
+        out = out + contrib[by_token[:, j]].to(x.dtype)
+    return out.reshape(b, s, d)
+
+
 def moe_apply(p, cfg: LMConfig, x: torch.Tensor, policy: Policy = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (out [B, S, D], aux_loss scalar)."""
@@ -180,43 +246,6 @@ def moe_apply(p, cfg: LMConfig, x: torch.Tensor, policy: Policy = None
     aux = e * torch.sum(density * torch.mean(probs, dim=0))
 
     cap = int(t * k / e * cfg.capacity_factor + 1)
+    return _experts(p, x, _route(expert_ids, gate_vals, e, cap), e, cap,
+                    policy), aux
 
-    # ---- sort-based dispatch ----------------------------------------------
-    flat_expert = expert_ids.reshape(-1)                          # [T*K]
-    flat_token = torch.arange(t, device=dev).repeat_interleave(k)
-    flat_gate = gate_vals.reshape(-1)
-    order = torch.argsort(flat_expert, stable=True)
-    sorted_e = flat_expert[order]
-    sorted_tok = flat_token[order]
-    sorted_gate = flat_gate[order]
-    seg_start = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
-    pos_in_e = torch.arange(t * k, device=dev) - seg_start[sorted_e]
-    keep = pos_in_e < cap
-    slot = torch.where(keep, sorted_e * cap + pos_in_e,
-                       torch.full_like(pos_in_e, e * cap))   # drop bucket
-
-    # gather tokens into expert buffers [E*C+1, D] (last row = drop bucket)
-    buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=dev)
-    buf[slot] = F.embedding(sorted_tok, xt)   # xt[sorted_tok], as _embed
-    xe = buf[:-1].reshape(e, cap, d)
-    xe = shard(xe, "experts", None, None)
-
-    # ---- expert FFN (SwiGLU) ----------------------------------------------
-    h = F.silu(_expert_gemm(xe, p["w1"], policy)) * \
-        _expert_gemm(xe, p["w3"], policy)
-    h = shard(h, "experts", None, "ffn")
-    ye = _expert_gemm(h, p["w2"], policy)                        # [E, C, D]
-
-    # ---- combine: each token's k contributions in sorted order ------------
-    yflat = ye.reshape(e * cap, d)
-    contrib = torch.where(keep[:, None],
-                          yflat[torch.clamp(slot, max=e * cap - 1)],
-                          torch.zeros((), dtype=yflat.dtype, device=dev)) \
-        * sorted_gate[:, None]
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(t * k, device=dev)
-    by_token = torch.sort(rank.reshape(t, k), dim=1).values      # [T, K]
-    out = torch.zeros((t, d), dtype=x.dtype, device=dev)
-    for j in range(k):
-        out = out + contrib[by_token[:, j]].to(x.dtype)
-    return out.reshape(b, s, d), aux

@@ -22,10 +22,22 @@ for those steps, for the length of one traced (or sharded) call:
     DTensor may gather the weight instead and replicate the GEMM over
     that mesh dim;
   * the attention cores (``models.lm.common``'s ``_sdpa``,
-    ``_flash_sdpa`` and ``_swa_chunked``) run once per shard
+    ``_flash_sdpa`` and ``_swa_chunked``) and RWKV6's chunked WKV
+    (``models.lm.rwkv6._wkv_chunked``) run once per shard
     (``local_map``), split by rows and heads, where DTensor would flatten
     the split head dim into the batched GEMMs' batch dim, which some torch
-    versions refuse.
+    versions refuse;
+  * a head split or a head flatten whose head count a mesh dim does not
+    divide brings its gradient back to its forward split before the
+    backward views it (a row-parallel GEMM's backward splits the flat
+    dim where the heads cannot follow);
+  * the MoE dispatch (``models.lm.moe``) stays global over the tokens,
+    as on one device: its index arithmetic (``_route``: sort, positions,
+    capacity, slots) runs on every device over the routing tensors
+    gathered whole, and only the token gather, the expert GEMMs and the
+    combine (``_experts``) are split, over experts, the experts' hidden
+    dim and capacity rows.  A per-shard dispatch would give each shard
+    its own capacity and drop other tokens.
 
 The hooks are process-wide while :func:`spmd` is entered (module
 attributes and a ``TorchFunctionMode``); plain tensors pass through them
@@ -40,9 +52,11 @@ import contextlib
 from typing import Any, Iterator, List
 
 import torch
+import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
-__all__ = ["spmd", "attention_local", "gemm_input"]
+__all__ = ["spmd", "attention_local", "gemm_input", "wkv_local",
+           "moe_route", "moe_experts"]
 
 #: ``models.lm.common``'s attention cores: q [B, S, H, Dh], k and v
 #: [B, T, Hk, Dh] and the rest of their arguments -> [B, S, H, Dh].
@@ -85,6 +99,65 @@ def gemm_input(x: torch.Tensor, w: Any) -> torch.Tensor:
     return x.redistribute(x.device_mesh, pl)
 
 
+def _rows_heads(x):
+    """(placements, head mesh dims, row mesh dims) of a per-shard core
+    over ``x`` [B, S, H, ...]: rows split as x's batch dim is or as the
+    bound ``"batch"`` rule says, heads as x's head dim is, each where it
+    divides; every other mesh dim replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.dist.sharding import current_rules
+
+    mesh = x.device_mesh
+    ctx = current_rules()
+    ax = ctx[0].get("batch") if ctx else None
+    batch_axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
+    pl: List[Any] = []
+    head_dims: List[int] = []
+    row_dims: List[int] = []
+    rows = heads = 1
+    for i, p in enumerate(x.placements):
+        d = p.dim % x.ndim if type(p) is Shard else None
+        n = mesh.size(i)
+        if d == 2 and x.shape[2] % (heads * n) == 0:
+            heads *= n
+            head_dims.append(i)
+            pl.append(Shard(2))
+        elif (d == 0 or mesh.mesh_dim_names[i] in batch_axes) and \
+                x.shape[0] % (rows * n) == 0:
+            rows *= n                   # the batch rule's mesh dims too
+            row_dims.append(i)
+            pl.append(Shard(0))
+        else:
+            pl.append(Replicate())
+    return pl, head_dims, row_dims
+
+
+def wkv_local(fn, r, k, v, w, u):
+    """``fn(r, k, v, w, u)`` for RWKV6's chunked WKV
+    (``models.lm.rwkv6._wkv_chunked``: r, k, v, w [B, S, H, D], u
+    [H, D]); on ``DTensor``s once per shard, split by rows and heads as
+    :func:`attention_local` splits them (each (row, head) runs its own
+    recurrence; DTensor's einsum strategies would flatten a split dim,
+    which some torch versions refuse)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(r, DTensor):
+        return fn(r, k, v, w, u)
+    pl, head_dims, row_dims = _rows_heads(r)
+    pl_u = tuple(Shard(0) if i in head_dims else Replicate()
+                 for i in range(len(pl)))
+    grad_u = tuple(Partial() if i in row_dims else p
+                   for i, p in enumerate(pl_u))
+    pl = tuple(pl)
+    return local_map(fn, out_placements=(pl,),
+                     in_placements=(pl,) * 4 + (pl_u,),
+                     in_grad_placements=(pl,) * 4 + (grad_u,),
+                     device_mesh=r.device_mesh, redistribute_inputs=True)(
+                         r, k, v, w, u)
+
+
 def attention_local(fn, q, k, v, *rest: Any):
     """``fn(q, k, v, *rest)`` for an attention core; on ``DTensor``s once
     per shard.  Rows split as q's batch dim is or as the bound ``"batch"``
@@ -94,34 +167,17 @@ def attention_local(fn, q, k, v, *rest: Any):
     the query heads, k and v stay whole over the head split and each shard
     takes the KV heads of its own query heads, by its mesh coordinate;
     a shard whose query heads straddle KV groups unevenly is refused."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
-
-    from repro_torch.dist.sharding import current_rules
 
     if not isinstance(q, DTensor):
         return fn(q, k, v, *rest)
     mesh = q.device_mesh
-    ctx = current_rules()
-    ax = ctx[0].get("batch") if ctx else None
-    batch_axes = (ax,) if isinstance(ax, str) else tuple(ax or ())
     h, hk = q.shape[2], k.shape[2]
-    pl: List[Any] = []
-    head_dims: List[int] = []
-    rows = heads = 1
-    for i, p in enumerate(q.placements):
-        d = p.dim % q.ndim if type(p) is Shard else None
-        n = mesh.size(i)
-        if d == 2 and h % (heads * n) == 0:
-            heads *= n
-            head_dims.append(i)
-            pl.append(Shard(2))
-        elif (d == 0 or mesh.mesh_dim_names[i] in batch_axes) and \
-                q.shape[0] % (rows * n) == 0:
-            rows *= n                   # the batch rule's mesh dims too
-            pl.append(Shard(0))
-        else:
-            pl.append(Replicate())
+    pl, head_dims, _ = _rows_heads(q)
+    heads = 1
+    for i in head_dims:
+        heads *= mesh.size(i)
     g, h_l = h // hk, h // heads
     select = hk % heads != 0
     if select and g % h_l and h_l % g:
@@ -152,6 +208,115 @@ def attention_local(fn, q, k, v, *rest: Any):
                          q, k, v, *rest)
 
 
+def moe_route(fn, expert_ids, gate_vals, e: int, cap: int):
+    """``fn(expert_ids, gate_vals, e, cap)`` for ``models.lm.moe._route``;
+    on ``DTensor``s on every device over the routing tensors gathered
+    whole ([T, K]: small beside the activations), so every device holds
+    the same global dispatch (one capacity over all T tokens, as on one
+    device) and its outputs replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(expert_ids, DTensor):
+        return fn(expert_ids, gate_vals, e, cap)
+    mesh = expert_ids.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    return local_map(lambda a, b: fn(a, b, e, cap),
+                     out_placements=(rep,) * 5, in_placements=(rep, rep),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         expert_ids, gate_vals)
+
+
+def _mesh_dims(mesh, ax) -> List[int]:
+    axes = () if ax is None else (ax,) if isinstance(ax, str) else ax
+    return [list(mesh.mesh_dim_names).index(a) for a in axes]
+
+
+def _linear_index(mesh, dims: List[int]):
+    """(count, this device's index) over mesh dims ``dims``, major to
+    minor."""
+    coord = mesh.get_coordinate()
+    n, i = 1, 0
+    for d in dims:
+        i = i * mesh.size(d) + coord[d]
+        n *= mesh.size(d)
+    return n, i
+
+
+def moe_experts(fn, p, x, route, e: int, cap: int, policy):
+    """``fn(p, x, route, e, cap, policy)`` for ``models.lm.moe._experts``;
+    on ``DTensor``s once per shard.  The [E, C, D] expert buffer splits
+    its experts over the mesh dims of the bound ``"experts"`` rule, the
+    experts' hidden dim over those of ``"ffn"`` (where each divides its
+    dim, as ``shard`` resolves them) and its capacity rows over every
+    other mesh dim (unevenly, as ``torch.chunk`` splits; the expert
+    GEMMs are replicated over no mesh dim).  Each device gathers its own
+    slots' tokens from x gathered whole, runs its experts on them, and
+    scatter-adds its contributions into a [T, D] partial sum, reduced to
+    x's split (a token's k contributions are summed across devices, not
+    in the one device's sorted order: the values agree to rounding)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.dist.sharding import (current_rules, mesh_axis_sizes,
+                                           resolve_spec)
+    from repro_torch.models.lm import moe as M
+
+    if not isinstance(x, DTensor):
+        return fn(p, x, route, e, cap, policy)
+    mesh = x.device_mesh
+    n = mesh.ndim
+    ctx = current_rules()
+    e_ax, f_ax = resolve_spec(ctx[0] if ctx else {}, mesh_axis_sizes(mesh),
+                              (e, p["w1"].shape[-1]), ("experts", "ffn"))
+    e_dims = _mesh_dims(mesh, e_ax)
+    f_dims = [i for i in _mesh_dims(mesh, f_ax) if i not in e_dims]
+    c_dims = [i for i in range(n) if i not in e_dims + f_dims]
+    n_e, i_e = _linear_index(mesh, e_dims)
+    n_c, i_c = _linear_index(mesh, c_dims)
+    e0, e1 = i_e * e // n_e, (i_e + 1) * e // n_e
+    chunk = -(-cap // n_c)
+    c0, c1 = min(i_c * chunk, cap), min((i_c + 1) * chunk, cap)
+    rep, partial = [Replicate()] * n, [Partial()] * n
+
+    def local_w(name, f_dim):           # float expert weights [E, ., .]
+        pl = [Shard(0) if i in e_dims else Shard(f_dim) if i in f_dims
+              else Replicate() for i in range(n)]
+        grad = [Partial() if i in c_dims else q for i, q in enumerate(pl)]
+        return p[name].redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    w1_l, w3_l, w2_l = local_w("w1", 2), local_w("w3", 2), local_w("w2", 1)
+    x_l = x.redistribute(mesh, rep).to_local(grad_placements=partial)
+    b, s, d = x_l.shape
+    x_l = x_l.reshape(b * s, d)
+    sorted_tok, sorted_gate, keep, slot, _ = (
+        r.redistribute(mesh, rep).to_local(
+            grad_placements=partial if r.is_floating_point() else None)
+        for r in route)
+    t, k = b * s, sorted_tok.shape[0] // (b * s)
+
+    # this device's slots: the (token, k) item of each, -1 where empty
+    slot_item = torch.full((e * cap + 1,), -1, dtype=slot.dtype,
+                           device=slot.device)
+    slot_item[slot] = torch.arange(t * k, device=slot.device)
+    items = slot_item[:-1].reshape(e, cap)[e0:e1, c0:c1]      # [E_l, C_l]
+    valid = items >= 0
+    item = torch.clamp(items, min=0)
+    tok = sorted_tok[item]
+    zero = torch.zeros((), dtype=x_l.dtype, device=x_l.device)
+    xe = torch.where(valid[..., None], F.embedding(tok, x_l), zero)
+    h = F.silu(M._expert_gemm(xe, w1_l, policy)) * \
+        M._expert_gemm(xe, w3_l, policy)
+    ye = M._expert_gemm(h, w2_l, policy)                      # [E_l, C_l, D]
+    gate = torch.where(valid, sorted_gate[item],
+                       torch.zeros((), dtype=sorted_gate.dtype,
+                                   device=x_l.device))
+    contrib = (ye * gate[..., None]).to(x_l.dtype)
+    out = torch.zeros_like(x_l).index_add(
+        0, tok.reshape(-1), contrib.reshape(-1, d)).reshape(b, s, d)
+    out = DTensor.from_local(out, mesh, partial, run_check=False)
+    return out.redistribute(mesh, x.placements)
+
+
 class _Reshapes(TorchFunctionMode):
     """A rule of the module docstring for the reshapes of ``DTensor``s:
     the head split (``contiguous=False``) or, inside a backward, the
@@ -163,6 +328,7 @@ class _Reshapes(TorchFunctionMode):
 
         self.dtensor, self.replicate = DTensor, Replicate
         self.funcs = {torch.Tensor.reshape, torch.reshape}
+        self.contiguous = contiguous
         self.rule = self._contiguous if contiguous else self._heads
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
@@ -171,8 +337,31 @@ class _Reshapes(TorchFunctionMode):
             rest = args[1:]
             shape = tuple(rest[0]) if len(rest) == 1 and isinstance(
                 rest[0], (tuple, list)) else tuple(rest)
-            args = (self.rule(args[0], shape),) + tuple(rest)
+            x = self.rule(args[0], shape)
+            try:
+                y = func(x, *rest, **kwargs)
+            except Exception:
+                merged = self._merged_split(x, shape)
+                if not merged:
+                    raise
+                pl = list(x.placements)
+                for i in merged:
+                    pl[i] = self.replicate()
+                x = x.redistribute(x.device_mesh, pl)
+                y = func(x, *rest, **kwargs)
+            return y if self.contiguous else self._grad_rule(x, shape, y)
         return func(*args, **kwargs)
+
+    @staticmethod
+    def _merged_split(x, shape) -> List[int]:
+        """The mesh dims splitting an inner one of the leading dims that
+        ``x.reshape(shape)`` merges into one (a DTensor without strided
+        shards refuses that merge; it is gathered first)."""
+        k = x.ndim - len(shape) + 1
+        if not (2 <= k <= x.ndim - 1
+                and tuple(shape[1:]) == tuple(x.shape[k:])):
+            return []
+        return [i for d in range(1, k) for i in _split_over(x, d)]
 
     def _heads(self, x, shape):
         if (len(shape) == x.ndim + 1
@@ -184,6 +373,40 @@ class _Reshapes(TorchFunctionMode):
                 pl[i] = self.replicate()
             x = x.redistribute(x.device_mesh, pl)
         return x
+
+    def _grad_rule(self, x, shape, y):
+        """``y = x.reshape(shape)`` that splits x's last dim into heads or
+        flattens x's heads and head width, where a mesh dim does not
+        divide the head count: the gradient comes back to ``y``'s own
+        split on the reshaped dims before the backward views it.  A GEMM's
+        backward may split those dims over a mesh dim that the heads
+        cannot follow: DTensor refuses to unflatten such a split, or
+        makes it a strided shard whose gather reads index values, which
+        a traced (fake) tensor does not have."""
+        if not y.requires_grad:
+            return y
+        if len(shape) == x.ndim + 1 and tuple(y.shape[:-2]) == \
+                tuple(x.shape[:-1]):
+            heads, dims = y.shape[-2], (y.ndim - 2, y.ndim - 1)
+        elif len(shape) == x.ndim - 1 >= 1 and tuple(y.shape) == (
+                *x.shape[:-2], x.shape[-2] * x.shape[-1]):
+            heads, dims = x.shape[-2], (y.ndim - 1,)
+        else:
+            return y
+        if not any(heads % n for n in y.device_mesh.shape):
+            return y
+        want = [self.replicate() if p.is_partial() else p
+                for p in y.placements]
+
+        def as_forward(g):
+            pl = [w if p != w and getattr(p, "dim", None) in dims else p
+                  for p, w in zip(g.placements, want)]
+            if pl == list(g.placements):
+                return g
+            return g.redistribute(g.device_mesh, pl)
+
+        y.register_hook(as_forward)
+        return y
 
     def _contiguous(self, x, shape):
         if len(shape) != 2 or shape[0] != -1 or x.ndim < 3 or \
@@ -233,6 +456,14 @@ def spmd() -> Iterator[None]:
         for name in _ATTENTION:
             stack.enter_context(
                 _patched(common, name, _per_shard(getattr(common, name))))
+        wkv = rwkv6._wkv_chunked
+        stack.enter_context(_patched(
+            rwkv6, "_wkv_chunked", lambda *a: wkv_local(wkv, *a)))
+        route, experts = moe._route, moe._experts
+        stack.enter_context(_patched(
+            moe, "_route", lambda *a: moe_route(route, *a)))
+        stack.enter_context(_patched(
+            moe, "_experts", lambda *a: moe_experts(experts, *a)))
         stack.enter_context(
             _patched(vjp._Gemm, "backward", staticmethod(split_backward)))
         stack.enter_context(_Reshapes(contiguous=False))

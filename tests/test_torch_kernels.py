@@ -65,6 +65,20 @@ def test_matmul_plain_matches_pallas_and_oracle(mm_refs, case):
 
 
 @pytest.mark.parametrize("case", range(len(MM_CASES)))
+def test_matmul_plain_in_tile_chunks_matches_pallas(mm_refs, case,
+                                                    monkeypatch):
+    """The plain datapath forms its tiles' partials ``PART_ELEMS`` at a
+    time (a long contraction at a small block on the card): one and two
+    tiles a chunk give the same bits as all at once."""
+    b, k, n, bk, L = MM_CASES[case]
+    x, w = mm_inputs(MM_CASES[case])
+    _, pallas, _, _ = mm_refs[case]
+    for tiles in (1, 2):
+        monkeypatch.setattr(KM, "PART_ELEMS", tiles * b * n)
+        assert_bits_equal(KM.bfp_matmul_plain(t(x), t(w), L, L, bk), pallas)
+
+
+@pytest.mark.parametrize("case", range(len(MM_CASES)))
 def test_matmul_prequant_plain_matches_pallas(mm_refs, case):
     b, k, n, bk, L = MM_CASES[case]
     x, w = mm_inputs(MM_CASES[case])

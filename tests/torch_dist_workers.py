@@ -33,16 +33,16 @@ def _entry(fn, rank, world, tmp, args):
         raise
 
 
-def run_ranks(fn, world, tmp, *args):
+def run_ranks(fn, world, tmp, *args, join_s=JOIN_S):
     """[fn(rank, world, *args) for each rank], from ``world`` spawned
-    processes; raises if a rank fails or outlives :data:`JOIN_S`."""
+    processes; raises if a rank fails or outlives ``join_s`` seconds."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry, args=(fn, r, world, str(tmp), args))
              for r in range(world)]
     for p in procs:
         p.start()
     for p in procs:
-        p.join(JOIN_S)
+        p.join(join_s)
     late = [r for r, p in enumerate(procs) if p.is_alive()]
     for p in procs:
         if p.is_alive():
@@ -52,7 +52,7 @@ def run_ranks(fn, world, tmp, *args):
             for r in range(world)
             if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
     if late or errs or any(p.exitcode for p in procs):
-        raise AssertionError(f"ranks still running after {JOIN_S} s: "
+        raise AssertionError(f"ranks still running after {join_s} s: "
                              f"{late}; exit codes "
                              f"{[p.exitcode for p in procs]}; {errs}")
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
